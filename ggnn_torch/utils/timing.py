@@ -1,0 +1,54 @@
+"""Wall-clock phase timing with us/point throughput logs.
+
+The analog of the reference's cudaEvent ``time_launcher`` instrumentation
+(graph_construction.cu:54-77): phases are timed with host clocks around
+device work that is fenced by ``torch.cuda.synchronize()`` at the end of the
+phase, and reported in the same "N queries -> X us/query" format.
+"""
+
+from __future__ import annotations
+
+import time
+from contextlib import contextmanager
+
+import torch
+
+from ggnn_torch.utils.logging import vlog
+
+__all__ = ["PhaseTimer"]
+
+
+class PhaseTimer:
+    """Accumulates named phase durations; logs us/point at VLOG level.
+
+    ``device``: the device whose queued work each phase waits for before its
+    clock stops (a CUDA device is synchronised; the CPU needs no fence)."""
+
+    def __init__(self, device: torch.device | str = "cpu"):
+        self.device = torch.device(device)
+        self.phases: dict[str, float] = {}
+
+    @contextmanager
+    def phase(self, name: str, n: int = 0):
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            elapsed = time.perf_counter() - start
+            self.phases[name] = self.phases.get(name, 0.0) + elapsed
+            if n:
+                vlog(
+                    2,
+                    "%s: %.3f ms for %d queries -> %.3f us/query",
+                    name,
+                    elapsed * 1e3,
+                    n,
+                    elapsed * 1e6 / n,
+                )
+            else:
+                vlog(2, "%s: %.3f ms", name, elapsed * 1e3)
+
+    def total(self) -> float:
+        return sum(self.phases.values())
