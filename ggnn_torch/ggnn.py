@@ -3,9 +3,10 @@
 Equivalent of the reference's ``GGNN`` facade + ``GPUInstance`` runtime
 (src/ggnn/base/ggnn.cu:53-564, src/ggnn/base/gpu_instance.cu:136-790) for a
 single shard: the base lives on the chosen device, the graph is built there,
-the quantized-adjacency ("fused") index is derived from it, and queries walk
-it. Several shards or devices, out-of-core rotation and the row engine are
-not ported yet (ROADMAP Queue 1 items 7 and 8).
+queries walk it: the row engine (the default) gathers f32 rows, the fused
+engine walks the quantized-adjacency index derived from the graph. Several
+shards or devices and out-of-core rotation are not ported yet (ROADMAP
+Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from ggnn_torch.config import MAX_KQUERY, DistanceMeasure, GraphConfig
 from ggnn_torch.graph import Graph, load_graph_shard, save_graph_shard
 from ggnn_torch.ops.bruteforce import bruteforce_knn
 from ggnn_torch.ops.distance import squared_norms
+from ggnn_torch.query.ann import ann_query
 from ggnn_torch.query.fused import FusedIndex, build_fused_index, fused_query
 from ggnn_torch.utils.logging import vlog
 
@@ -75,6 +77,7 @@ class GGNN:
         g = GGNN(device="cuda")
         g.set_base(base)                       # np/torch [N, D] float32 or uint8
         g.build(k_build=24, tau_build=0.5)
+        ids, dists = g.query(queries, 10, tau_query=0.5)   # row engine
         g.build_fused_index()
         ids, dists = g.query(queries, 10, tau_query=0.5, engine="fused")
         gt_ids, gt_dists = g.bf_query(queries, k_gt=100)
@@ -83,17 +86,20 @@ class GGNN:
     carries on on the CPU.
     """
 
-    # fused-engine query kwargs and their defaults (``seed_approx`` is
-    # accepted for API parity: seeds are always exact top-k here)
+    # engine-specific query kwargs: the engines that take each, and its
+    # default. Passing one that does not apply to the selected engine raises
+    # instead of being silently ignored (``seed_approx`` is accepted for API
+    # parity: seeds are always exact top-k here).
     _ENGINE_KWARGS = {
-        "pops_per_iter": 8,
-        "num_seeds": 16,
-        "rerank": None,
-        "cap": None,
-        "chunk": 8192,
-        "compact_levels": 2,
-        "seed_approx": True,
-        "width": None,
+        "pops_per_iter": (("row", "fused"), 8),
+        "fetch_cap_fraction": (("row",), 0.75),
+        "num_seeds": (("fused",), 16),
+        "rerank": (("fused",), None),
+        "cap": (("fused",), None),
+        "chunk": (("fused",), 8192),
+        "compact_levels": (("fused",), 2),
+        "seed_approx": (("fused",), True),
+        "width": (("fused",), None),
     }
 
     def __init__(self, device="cuda"):
@@ -159,27 +165,23 @@ class GGNN:
         sym_mode: str = "bulk",
         dense_seed_merge: bool = True,
     ) -> None:
-        """Build the search graph (ggnn.cuh:130-133) with the JAX package's
-        default schedule: quantized layer walks, dense-seed merges and the
-        bulk sym pass."""
-        if not quantized_fetch:
-            raise NotImplementedError(
-                "quantized_fetch=False is not ported yet (ROADMAP Queue 1 item 9)"
-            )
-        if not dense_seed_merge:
-            raise NotImplementedError(
-                "the descent merge is not ported yet (ROADMAP Queue 1 item 9)"
-            )
-        if sym_mode != "bulk":
-            raise NotImplementedError(
-                f"sym_mode={sym_mode!r} is not ported yet (ROADMAP Queue 1 item 9)"
-            )
+        """Build the search graph (ggnn.cuh:130-133).
+
+        ``quantized_fetch``: merges walk their layers through the quantized
+        adjacency (off by itself above the 6 GiB inline bound, or when the
+        u8 metric is unusable on this data: exact f32 fetches then).
+        ``sym_mode``: "bulk" (default), "hybrid" or "walk"
+        (``build/sym.py``). ``dense_seed_merge``: seed merges from a dense
+        scan of the next layer's representatives; False runs the
+        reference's hierarchic descent."""
         self._measure = DistanceMeasure(measure)
         self._prepare(k_build)
         self._index = None
         graph, stats = build_graph(
             self._base, self._cfg, tau_build, refinement_iterations,
             self._measure, seed=self._build_seed,
+            quantized_fetch=quantized_fetch, sym_mode=sym_mode,
+            dense_seed_merge=dense_seed_merge,
         )
         self._graph = graph
         self._quantizer = stats.pop("quantizer")
@@ -227,18 +229,22 @@ class GGNN:
     # --- query (ggnn.cu:278-390) -------------------------------------------
 
     def _engine_kwargs(self, engine: str, engine_kwargs: dict) -> dict:
-        if engine == "row":
-            raise NotImplementedError(
-                "the row engine is not ported yet (ROADMAP Queue 1 item 7); "
-                "use engine='fused'"
-            )
-        if engine != "fused":
+        if engine not in ("row", "fused"):
             raise ValueError(f"unknown engine {engine!r}")
-        kw = dict(self._ENGINE_KWARGS)
+        kw = {}
         for name, value in engine_kwargs.items():
-            if name not in kw:
+            if name not in self._ENGINE_KWARGS:
                 raise TypeError(f"query() got an unexpected keyword {name!r}")
+            engines, _ = self._ENGINE_KWARGS[name]
+            if engine not in engines:
+                raise ValueError(
+                    f"query(engine={engine!r}) does not accept {name!r} "
+                    f"(applies to {'/'.join(engines)})"
+                )
             kw[name] = value
+        for name, (engines, default) in self._ENGINE_KWARGS.items():
+            if engine in engines:
+                kw.setdefault(name, default)
         return kw
 
     def _run_query(self, query, k_query, tau_query, max_iterations, measure,
@@ -248,12 +254,20 @@ class GGNN:
         if k_query > MAX_KQUERY:
             raise ValueError(f"k_query={k_query} exceeds {MAX_KQUERY}")
         kw = self._engine_kwargs(engine, engine_kwargs)
-        if self._index is None:
+        if engine == "fused" and self._index is None:
             raise RuntimeError("no fused index -- call build_fused_index() first")
         measure = DistanceMeasure(measure) if measure is not None else self._measure
+        query = _as_tensor(query, self.device)
+        if engine == "row":
+            return ann_query(
+                query, self._base, self._graph, self._cfg, k_query, tau_query,
+                max_iterations, measure, base_sq=self._base_sq,
+                pops_per_iter=kw["pops_per_iter"],
+                fetch_cap_fraction=kw["fetch_cap_fraction"],
+            )
         return fused_query(
-            _as_tensor(query, self.device), self._index, self._base, k_query,
-            tau_query, max_iterations, measure, base_sq=self._base_sq,
+            query, self._index, self._base, k_query, tau_query,
+            max_iterations, measure, base_sq=self._base_sq,
             chunk=kw["chunk"], pops_per_iter=kw["pops_per_iter"],
             num_seeds=kw["num_seeds"], rerank=kw["rerank"], cap=kw["cap"],
             compact_levels=kw["compact_levels"], width=kw["width"],
@@ -262,11 +276,14 @@ class GGNN:
     def query(self, query, k_query: int, tau_query: float,
               max_iterations: int = 400, measure: DistanceMeasure | None = None,
               *, engine: str = "row", **engine_kwargs) -> Results:
-        """k-NN of each query row: ``engine="fused"`` walks the graph through
-        the quantized-adjacency layout (build_fused_index() first).
+        """k-NN of each query row. ``engine="row"`` walks the point graph
+        gathering f32 rows (reference semantics, exact distances);
+        ``engine="fused"`` walks the same graph through the quantized-
+        adjacency layout (build_fused_index() first).
 
-        Engine kwargs: ``pops_per_iter``, ``num_seeds``, ``rerank``, ``cap``,
-        ``chunk``, ``compact_levels``, ``width``, ``seed_approx``."""
+        Engine kwargs: ``pops_per_iter`` (row/fused), ``fetch_cap_fraction``
+        (row), ``num_seeds``, ``rerank``, ``cap``, ``chunk``,
+        ``compact_levels``, ``width``, ``seed_approx`` (fused)."""
         ids, dists = self._run_query(query, k_query, tau_query, max_iterations,
                                      measure, engine, engine_kwargs)
         return self._finalize(ids, dists)
@@ -275,8 +292,8 @@ class GGNN:
                     max_iterations: int = 400,
                     measure: DistanceMeasure | None = None, *,
                     engine: str = "row", **engine_kwargs) -> ResultsFuture:
-        """Queue a query batch; the host copy of its results waits until
-        ``.result()`` is called."""
+        """Queue a query batch (either engine); the host copy of its results
+        waits until ``.result()`` is called."""
         ids, dists = self._run_query(query, k_query, tau_query, max_iterations,
                                      measure, engine, engine_kwargs)
         return ResultsFuture(lambda: self._finalize(ids, dists))

@@ -39,8 +39,10 @@ __all__ = [
     "BeamState",
     "beam_init",
     "beam_dedup_mask",
+    "beam_compact_candidates",
     "beam_insert",
     "beam_pop",
+    "beam_transform",
 ]
 
 EMPTY_ID = -1
@@ -56,8 +58,16 @@ class BeamState(NamedTuple):
     xi: torch.Tensor  # [B] f32
 
     @property
+    def batch(self) -> int:
+        return self.d.shape[0]
+
+    @property
     def width(self) -> int:
         return self.d.shape[1]
+
+    def best(self, k: int):
+        """The current k best (ids, dists), sorted ascending."""
+        return self.i[:, :k], self.d[:, :k]
 
     def criteria(self, k_best: int) -> torch.Tensor:
         """``best.worst() + xi`` (simple_knn_cache.cuh:121-124). While fewer
@@ -114,6 +124,22 @@ def beam_dedup_mask(
     return ok
 
 
+def beam_compact_candidates(cand_i: torch.Tensor, ok: torch.Tensor, cap: int):
+    """Pack the surviving candidates left and truncate to ``cap`` columns.
+
+    Graph walks re-encounter most neighbour ids, so after dedup typically
+    less than half a tile survives; compacting before the vector gather
+    shrinks the gather. Order among survivors is preserved (a stable sort on
+    the drop flag). Returns [B, min(cap, K)] ids with EMPTY padding.
+    """
+    K = cand_i.shape[1]
+    cap = min(cap, K)
+    _, order = torch.sort((~ok).to(torch.int8), dim=-1, stable=True)
+    packed = torch.gather(cand_i, -1, order[:, :cap])
+    col = torch.arange(cap, device=cand_i.device)[None, :]
+    return torch.where(col < ok.sum(dim=-1, keepdim=True), packed, EMPTY_ID)
+
+
 def beam_insert(
     state: BeamState,
     cand_i: torch.Tensor,
@@ -158,12 +184,15 @@ def beam_pop(
     P: int,
     k_best: int,
     row_mask: torch.Tensor | None = None,
+    *,
+    criteria: torch.Tensor | None = None,
 ):
     """Select and flag the first P unexpanded entries passing the criterion.
 
     The batched widening of the reference pop (simple_knn_cache.cuh:215-239):
     the beam is sorted, so the P best unexpanded entries below
-    ``d[k_best-1] + xi`` are this step's anchors.
+    ``d[k_best-1] + xi`` (or the given per-row ``criteria``) are this step's
+    anchors. P=1 reproduces the reference's one-anchor-at-a-time visit order.
 
     A popped entry beyond the ``k_best`` result prefix is BLANKED (the
     reference removes the popped queue copy, simple_knn_cache.cuh:233-235;
@@ -176,7 +205,7 @@ def beam_pop(
     """
     B, W = state.d.shape
     dev = state.d.device
-    crit = state.criteria(k_best)
+    crit = state.criteria(k_best) if criteria is None else criteria
     mask = ~state.exp & (state.i != EMPTY_ID) & (state.d < crit[:, None])
     if row_mask is not None:
         mask &= row_mask[:, None]
@@ -216,4 +245,25 @@ def beam_pop(
 
     return anchors, torch.any(valid, dim=-1), state._replace(
         d=d, i=i, exp=exp, vis=vis, vis_head=vis_head
+    )
+
+
+def beam_transform(state: BeamState, mapping: torch.Tensor,
+                   keep: int) -> BeamState:
+    """Descend one layer: remap the best ``keep`` ids, reset expansion flags.
+
+    Mirrors simple_knn_cache.cuh:297-333: best-list ids are remapped through
+    ``mapping`` (selection: layer-l id -> layer-(l-1) id), everything becomes
+    expandable again (the reference re-seeds its queue from the best list and
+    clears the visited ring), entries beyond ``keep`` are dropped.
+    """
+    col = torch.arange(state.width, device=state.d.device)[None, :]
+    ok = (state.i != EMPTY_ID) & (col < keep)
+    safe = state.i.clamp(0, mapping.shape[0] - 1).long()
+    return state._replace(
+        i=torch.where(ok, mapping[safe].to(torch.int32), EMPTY_ID),
+        d=torch.where(ok, state.d, EMPTY_DIST),
+        exp=torch.zeros_like(state.exp),
+        vis=torch.full_like(state.vis, EMPTY_ID),
+        vis_head=torch.zeros_like(state.vis_head),
     )

@@ -1,1 +1,2 @@
-"""Query engines (the quantized-adjacency walk)."""
+"""Query engines: the row engine (f32 rows) and the quantized-adjacency
+(fused) walk."""

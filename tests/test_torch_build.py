@@ -297,10 +297,12 @@ def test_merge_layer_on_reference_input(ref, record_property):
     t_adj = make_adjacency(t_codes, t_sq, _t(nbrs0), t_scale, t_zero)
     t_empty = torch.zeros((0,), dtype=torch.int32)
     got_i, got_nn1 = merge_layer(
-        bt, squared_norms(bt), (t_empty, _t(ref["sel"][1]), t_empty, t_empty),
+        bt, squared_norms(bt), tuple(_t(x) for x in neighbors),
+        (t_empty, _t(ref["sel"][1]), t_empty, t_empty),
         (t_empty, _t(ref["trans"][1]), t_empty, t_empty), _t(ref["nn1_stats"]),
         GraphConfig.create(N=N, D=D, KBuild=K), 1, 0, DistanceMeasure.Euclidean,
-        TAU, t_adj, chunk=1024,
+        TAU, chunk=1024, adjs=(t_adj, None, None, None), dense_seed=True,
+        num_seeds=32,
     )
     got_i, got_nn1 = got_i.numpy(), got_nn1.numpy()
     overlap = _overlap(got_i, want_i)

@@ -8,6 +8,8 @@ machine without it::
 * The fused query on one graph and index, once on the card (the CUDA
   kernel) and once on the CPU (its plain version): ids equal on >= 99% of
   rows -- only the f32 summation order differs.
+* The row engine on one graph, once on the card and once on the CPU: ids
+  equal on >= 99% of rows, distances within 1e-4 relative (f32 order).
 * A build on the card reaches the recall of a build on the CPU within
   0.01 c@1: the two draw different selection uniforms (a CUDA and a CPU
   generator), so the graphs differ like two seeds do.
@@ -19,6 +21,8 @@ import torch
 
 from ggnn_torch import GGNN, Evaluator
 from ggnn_torch.ops import adjacency
+from ggnn_torch.graph import Graph
+from ggnn_torch.query.ann import ann_query
 from ggnn_torch.query.fused import FusedIndex, fused_query
 
 N, NQ, D, K = 4096, 1000, 128, 24
@@ -71,6 +75,27 @@ def test_query_card_matches_cpu(cuda_device, data, built):
     assert adjacency.launches > before
     cpu_ids, cpu_dists = fused_query(torch.from_numpy(query), cpu_index,
                                      torch.from_numpy(base), 10, 0.5, 16, **kw)
+    same = np.mean(np.all(ids.cpu().numpy() == cpu_ids.numpy(), axis=1))
+    assert same >= 0.99
+    np.testing.assert_allclose(dists.cpu().numpy(), cpu_dists.numpy(),
+                               rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_row_query_card_matches_cpu(cuda_device, data, built):
+    base, query = data
+    g, _ = built
+    graph = g.get_graph()
+    cpu_graph = Graph(*(tuple(t.cpu() for t in f) if isinstance(f, tuple)
+                        else f.cpu() for f in graph))
+    before = adjacency.launches
+    ids, dists = ann_query(torch.from_numpy(query).to(cuda_device), g._base,
+                           graph, g._cfg, 10, 0.5, 64)
+    torch.cuda.synchronize()
+    assert adjacency.launches == before  # the row walk runs no kernel
+    cpu_ids, cpu_dists = ann_query(torch.from_numpy(query),
+                                   torch.from_numpy(base), cpu_graph, g._cfg,
+                                   10, 0.5, 64)
     same = np.mean(np.all(ids.cpu().numpy() == cpu_ids.numpy(), axis=1))
     assert same >= 0.99
     np.testing.assert_allclose(dists.cpu().numpy(), cpu_dists.numpy(),

@@ -228,16 +228,36 @@ def test_results_on_device_and_async(data, port):
     np.testing.assert_array_equal(res.ids, np.asarray(res[0]))
 
 
+def test_row_engine_default_and_async(data, port):
+    """``query`` defaults to the row engine; ``query_async`` gives the same
+    results for either engine."""
+    base, query, gt, _ = data
+    res = port.query(query, 10, 0.5, 64)
+    c1 = Evaluator(base, query, gt, k_query=10).evaluate_results(res.ids).c1
+    assert c1 >= 0.95
+    exact = np.sum((base[res.ids] - query[:, None]) ** 2, axis=-1)
+    np.testing.assert_allclose(res.dists, exact, rtol=1e-4, atol=1e-2)
+    fut = port.query_async(query, 10, 0.5, 64)
+    np.testing.assert_array_equal(fut.result().ids, res.ids)
+    fused = port.query(query[:50], 10, 0.5, 16, engine="fused")
+    fut = port.query_async(query[:50], 10, 0.5, 16, engine="fused")
+    np.testing.assert_array_equal(fut.result().ids, fused.ids)
+
+
 def test_outside_the_slice_raises(data, port):
     _, query, _, _ = data
     with pytest.raises(NotImplementedError):
-        port.query(query[:10], 10, 0.5, 16)  # the row engine
+        port.set_shard_size(N // 2)  # several shards
     with pytest.raises(NotImplementedError):
         port.build_fused_index(group=2)
     with pytest.raises(NotImplementedError):
         port.build_fused_index(bits=4)
-    with pytest.raises(NotImplementedError):
-        GGNN(device="cpu").build(K, 0.5, sym_mode="hybrid")
+    # a kwarg of the other engine is a tuning mistake, as in the reference
+    with pytest.raises(ValueError):
+        port.query(query[:10], 10, 0.5, 16, engine="fused",
+                   fetch_cap_fraction=0.5)
+    with pytest.raises(ValueError):
+        port.query(query[:10], 10, 0.5, 16, engine="row", num_seeds=8)
     with pytest.raises(TypeError):
         port.query(query[:10], 10, 0.5, 16, engine="fused", sort_bf16=True)
 
