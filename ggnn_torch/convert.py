@@ -39,30 +39,26 @@ def graph_from_numpy(graph, device="cpu") -> Graph:
 
 
 def fused_index_from_numpy(index, device="cpu") -> FusedIndex:
-    """A :class:`FusedIndex` from the JAX package's index fields.
+    """A :class:`FusedIndex` from the JAX package's index fields, of any
+    group and code width.
 
-    The JAX index keeps each node's walk metadata as one packed row
-    (neighbour ids, then the bit-cast f32 squared norms at a lane offset);
-    it is split here into the port's two tensors. Only the one-node-per-
-    block, uint8 layout (``group=1``, ``bits=8``) is carried across.
+    The JAX index keeps each group's walk metadata as one packed row
+    (neighbour ids, then the bit-cast f32 squared norms at a lane offset),
+    both in the blocks' fetch-column order; they are split here into the
+    port's two tensors in that stored order.
     """
     f = _fields(index)
-    nbr_ids = np.asarray(f["nbr_ids"])
-    blocks = np.asarray(f["blocks"])
     meta = np.asarray(f["meta"])
-    members = np.asarray(f["members"])
-    NG, Kc = nbr_ids.shape
-    if members.shape[1] != 1 or blocks.shape[1] != Kc:
-        raise NotImplementedError(
-            "only group=1, bits=8 indexes carry across (ROADMAP Queue 1 item 9)"
-        )
+    Kc = np.asarray(f["nbr_ids"]).shape[1]
     H = max(64, -(-Kc // 64) * 64)  # lane offset of the norms half
     ids = np.ascontiguousarray(meta[:, :Kc])
     sq = np.ascontiguousarray(meta[:, H : H + Kc]).view(np.float32)
     return FusedIndex(
         nbr_ids=_t(ids, device),
-        blocks=_t(blocks, device),
+        blocks=_t(f["blocks"], device),
         nbr_sq=_t(sq, device),
+        group_of=_t(f["group_of"], device),
+        members=_t(f["members"], device),
         scale=_t(f["scale"], device),
         zero=_t(f["zero"], device),
         rep_ids=_t(f["rep_ids"], device).to(torch.int32),

@@ -45,6 +45,15 @@ class Graph(NamedTuple):
     translation: tuple
     nn1_stats: torch.Tensor
 
+    def to(self, device) -> "Graph":
+        """The same graph with every tensor on ``device``."""
+        return Graph(*(tuple(t.to(device) for t in f) if isinstance(f, tuple)
+                       else f.to(device) for f in self))
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for f in self for t in (f if isinstance(f, tuple) else (f,)))
+
 
 def _np(t) -> np.ndarray:
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)

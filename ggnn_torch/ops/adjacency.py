@@ -31,6 +31,7 @@ __all__ = [
     "adjacency_dot_plain",
     "build_kernel",
     "launches",
+    "launches_nibbles",
     "KERNEL_SOURCE",
 ]
 
@@ -42,8 +43,10 @@ _NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# kernel launches made by adjacency_dot (the plain CPU route does not count)
+# kernel launches made by adjacency_dot (the plain CPU route does not count):
+# all of them, and those in int4 ``nibbles`` mode
 launches = 0
+launches_nibbles = 0
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -148,7 +151,7 @@ def adjacency_dot(qs: torch.Tensor, anchors: torch.Tensor,
     version; CUDA tensors launch the kernel, which needs contiguous inputs,
     ``D % 16 == 0`` and a 16-byte aligned ``blocks``.
     """
-    global launches
+    global launches, launches_nibbles
     _check(qs, anchors, blocks)
     dev = qs.device
     if dev.type == "cpu":
@@ -179,4 +182,5 @@ def adjacency_dot(qs: torch.Tensor, anchors: torch.Tensor,
     if err:
         raise RuntimeError(f"adjacency_dot kernel launch failed: CUDA error {err}")
     launches += 1
+    launches_nibbles += bool(nibbles)
     return out

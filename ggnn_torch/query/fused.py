@@ -22,12 +22,21 @@ Distances during the walk are exact distances to the *dequantized* points,
 so the walk explores the true graph with a slightly perturbed metric, and
 the re-rank restores exact ordering.
 
-This slice covers ``group=1`` and ``bits=8``; the walk's neighbour ids and
-dequantized squared norms are two plain tensors beside the code blocks.
+Blocks are stored per *group* of graph-close nodes (``group=2`` pairs
+mutual-nearest neighbours): one fetch serves every member, and anchors of
+one pop tile that share a group collapse to one fetch. ``bits=4`` packs two
+neighbours' int4 codes per byte. The walk's neighbour ids and dequantized
+squared norms are two plain tensors beside the code blocks, in the blocks'
+fetch-column order. What cannot be re-derived from (base, graph) -- the
+group matching and the quantizer -- persists as a ``.fused.npz`` sidecar in
+the JAX package's ``meta-v2`` format (:class:`FusedIndexMeta`).
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
@@ -49,15 +58,21 @@ from ggnn_torch.ops.topk import smallest_k_positions, sort_by_dist
 __all__ = [
     "AdjacencyTables",
     "FusedIndex",
+    "FusedIndexMeta",
     "assemble_fused_index",
     "build_fused_index",
     "encode_u8",
     "fit_affine_u8",
     "fused_best_first",
     "fused_best_first_compacted",
+    "fused_index_matches_graph",
     "fused_query",
+    "graph_fingerprint",
+    "load_fused_index",
     "make_adjacency",
     "match_groups",
+    "meta_of",
+    "save_fused_index",
 ]
 
 EMPTY_ID = -1
@@ -83,10 +98,16 @@ class FusedIndex(NamedTuple):
     """Quantized-adjacency index of one shard (device-resident).
 
     Attributes:
-      nbr_ids: [N, K] i32 -- each node's neighbour ids (-1 = empty slot).
-      blocks: [N, K, D] u8 -- the fetch unit: the node's neighbours'
-        quantized vectors inline.
-      nbr_sq: [N, K] f32 -- squared norms of the dequantized neighbours.
+      nbr_ids: [NG, G*K] i32 -- the group members' neighbour ids, member-
+        major (-1 = empty slot), in the blocks' fetch-column order: with
+        int4 codes the even columns, then the odd ones.
+      blocks: [NG, CR, D] u8 -- the fetch unit: the members' neighbours'
+        quantized vectors inline (CR = G*K, or G*K/2 with two int4 codes
+        per byte, the even neighbour in the low nibble).
+      nbr_sq: [NG, G*K] f32 -- squared norms of the dequantized neighbours,
+        in ``nbr_ids``' order.
+      group_of: [N] i32 -- node id -> its group (the fetch address).
+      members: [NG, G] i32 -- group -> member node ids (-1 pad).
       scale / zero: [D] f32 -- per-dimension affine dequantization
         (x_hat = scale * code + zero).
       rep_ids: [R] i32 -- base ids of the layer-1 representatives (seeds).
@@ -98,6 +119,8 @@ class FusedIndex(NamedTuple):
     nbr_ids: torch.Tensor
     blocks: torch.Tensor
     nbr_sq: torch.Tensor
+    group_of: torch.Tensor
+    members: torch.Tensor
     scale: torch.Tensor
     zero: torch.Tensor
     rep_ids: torch.Tensor
@@ -107,11 +130,39 @@ class FusedIndex(NamedTuple):
 
     @property
     def k_build(self) -> int:
-        return self.nbr_ids.shape[1]
+        """Neighbour ids per group member."""
+        return self.nbr_ids.shape[1] // self.group
+
+    @property
+    def group(self) -> int:
+        return self.members.shape[1]
 
     @property
     def cand_per_fetch(self) -> int:
+        """Candidate ids delivered by one block fetch."""
         return self.nbr_ids.shape[1]
+
+    @property
+    def bits(self) -> int:
+        """Code width (8 = one neighbour per block row, 4 = two packed)."""
+        return 8 if self.blocks.shape[1] == self.nbr_ids.shape[1] else 4
+
+
+class FusedIndexMeta(NamedTuple):
+    """Host-persisted form of a :class:`FusedIndex`: only what cannot be
+    re-derived from (base, graph) -- the group matching and the quantizer.
+    The inline-code tables are re-assembled by one device gather at
+    stage-in (:func:`assemble_fused_index`).
+
+    ``graph_fp`` fingerprints the layer-0 adjacency the matching came from;
+    a sidecar whose fingerprint does not match the loaded graph is rejected.
+    All zeros means "unvalidatable" and is rejected as well."""
+
+    members: np.ndarray  # [NG, G] i32
+    scale: np.ndarray  # [D] f32
+    zero: np.ndarray  # [D] f32
+    graph_fp: np.ndarray  # [32] u8 blake2b of neighbors[0]
+    bits: np.ndarray  # [1] i32 code width (8 = uint8, 4 = packed int4)
 
 
 def fit_affine_u8(
@@ -144,8 +195,6 @@ def match_groups(nbr_ids: np.ndarray, group: int) -> np.ndarray:
     its members' neighbor *pairs*, interleaved so the graph-nearest-first
     ordering survives), so a group of 4 is two graph-adjacent pairs, etc.
     Returns members [NG, group] i32 (-1 pads only when N % group != 0).
-    The grouped index layout that uses it is not ported yet (ROADMAP Queue 1
-    item 9).
     """
     N, K = nbr_ids.shape
     if group <= 1:
@@ -214,16 +263,18 @@ def _match_pairs(nbr_ids: np.ndarray) -> np.ndarray:
     return np.stack([owners, partner[owners]], axis=1).astype(np.int32)
 
 
-def quantizer_for(base: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(scale, zero) for a base: identity for uint8 bases (their bytes are
-    the codes, the reference's native uint8 mode), else the fitted affine
-    map. The quantile fit runs on the host."""
+def quantizer_for(base: torch.Tensor, levels: int = 255
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(scale, zero) for a base: identity for uint8 bases at 255 levels
+    (their bytes are the codes, the reference's native uint8 mode), else
+    the fitted affine map (``levels`` 15 for int4). The quantile fit runs
+    on the host."""
     D = base.shape[1]
-    if base.dtype == torch.uint8:
+    if base.dtype == torch.uint8 and levels == 255:
         scale = np.ones((D,), np.float32)
         zero = np.zeros((D,), np.float32)
     else:
-        scale, zero = fit_affine_u8(base.cpu().numpy())
+        scale, zero = fit_affine_u8(base.cpu().numpy(), levels=levels)
     return (torch.from_numpy(scale).to(base.device),
             torch.from_numpy(zero).to(base.device))
 
@@ -237,17 +288,41 @@ def encode_u8(base_f32, scale, zero, levels: int = 255):
     return codes, x_hat_sq
 
 
+def _assemble_blocks(codes, x_hat_sq, nbr, bits: int = 8):
+    """Inline one adjacency table (one device gather): ([NG, CR, D] u8 code
+    blocks, [NG, Kc] ids, [NG, Kc] dequantized squared norms).
+
+    ``bits=4`` packs two neighbours per code row (low nibble = the even
+    column), CR = Kc/2. The kernel's dot columns then come out [all low |
+    all high], so ids and norms are stored in that same order (even
+    columns, then odd); the walk only ever pairs id[j] with dot[j]."""
+    safe = nbr.clamp_min(0).long()
+    blocks = codes[safe]
+    sq = torch.where(nbr >= 0, x_hat_sq[safe], EMPTY_DIST)
+    if bits == 4:
+        blocks = blocks[:, 0::2, :] | (blocks[:, 1::2, :] << 4)
+        nbr = torch.cat([nbr[:, 0::2], nbr[:, 1::2]], dim=1)
+        sq = torch.cat([sq[:, 0::2], sq[:, 1::2]], dim=1)
+    return blocks, nbr.contiguous(), sq.contiguous()
+
+
 def make_adjacency(codes, x_hat_sq, nbr, scale, zero) -> AdjacencyTables:
     """Inline one layer's adjacency: [N, K, D] neighbour codes (one device
     gather) and the neighbours' dequantized squared norms."""
-    safe = nbr.clamp_min(0).long()
-    return AdjacencyTables(
-        nbr_ids=nbr,
-        blocks=codes[safe],
-        nbr_sq=torch.where(nbr >= 0, x_hat_sq[safe], EMPTY_DIST),
-        scale=scale,
-        zero=zero,
-    )
+    blocks, ids, sq = _assemble_blocks(codes, x_hat_sq, nbr)
+    return AdjacencyTables(nbr_ids=ids, blocks=blocks, nbr_sq=sq,
+                           scale=scale, zero=zero)
+
+
+def graph_fingerprint(graph) -> np.ndarray:
+    """32-byte blake2b digest of a graph's layer-0 adjacency, hashed over a
+    contiguous int32 host copy (the JAX package hashes the same bytes)."""
+    nbr0 = graph.neighbors[0]
+    if isinstance(nbr0, torch.Tensor):
+        nbr0 = nbr0.cpu().numpy()
+    nbr0 = np.ascontiguousarray(nbr0, dtype=np.int32)
+    digest = hashlib.blake2b(nbr0.tobytes(), digest_size=32).digest()
+    return np.frombuffer(digest, dtype=np.uint8).copy()
 
 
 def build_fused_index(
@@ -260,65 +335,189 @@ def build_fused_index(
     quantizer: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> FusedIndex:
     """Derive the quantized-adjacency index from a built shard graph.
-    ``quantizer``: the (scale, zero) already fitted on this base, if any
-    (the build fits the same one)."""
-    if group != 1:
-        raise NotImplementedError(
-            "group>1 fused layouts are not ported yet (ROADMAP Queue 1 item 9)"
-        )
-    if bits != 8:
-        raise NotImplementedError(
-            "bits=4 indexes are not ported yet (ROADMAP Queue 1 item 9)"
-        )
-    scale, zero = quantizer if quantizer is not None else (None, None)
-    return assemble_fused_index(base, graph, scale=scale, zero=zero)
+
+    ``group``: nodes per block (a power of two; 2 pairs graph-nearest
+    nodes, matched on the host). ``bits=4`` stores packed int4 codes: half
+    the block bytes (the walk metric coarsens; the exact re-rank does not).
+    ``quantizer``: the (scale, zero) the build already fitted on this base
+    at 255 levels, if any; reused for ``bits=8`` only (int4 re-fits at 15).
+    """
+    nbr0 = graph.neighbors[0]
+    if group <= 1:
+        members = np.arange(nbr0.shape[0], dtype=np.int32)[:, None]
+    else:
+        members = match_groups(nbr0.cpu().numpy(), group)
+    scale, zero = quantizer if quantizer is not None and bits == 8 else (None, None)
+    return assemble_fused_index(base, graph, members=members, scale=scale,
+                                zero=zero, bits=bits)
 
 
 def assemble_fused_index(
     base: torch.Tensor,
     graph: Graph,
     *,
-    scale: torch.Tensor | None = None,
-    zero: torch.Tensor | None = None,
+    members: np.ndarray,
+    scale=None,
+    zero=None,
+    bits: int = 8,
 ) -> FusedIndex:
-    """Assemble the device-resident index (one block per node).
-    Deterministic given (base, graph[, scale, zero])."""
+    """Assemble the device-resident index from a group matching (and
+    optionally a stored quantizer, numpy or tensor). Deterministic given
+    (base, graph, members[, scale, zero]): re-assembling from a meta
+    sidecar reproduces the stored index bit for bit."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits={bits} (4 or 8)")
+    levels = 255 if bits == 8 else 15
+    dev = base.device
     if scale is None or zero is None:
-        scale, zero = quantizer_for(base)
+        scale, zero = quantizer_for(base, levels=levels)
+    scale = torch.as_tensor(scale, dtype=torch.float32).to(dev)
+    zero = torch.as_tensor(zero, dtype=torch.float32).to(dev)
     base_f32 = base.to(torch.float32)
-    codes, x_hat_sq = encode_u8(base_f32, scale, zero)
-    adj = make_adjacency(codes, x_hat_sq, graph.neighbors[0], scale, zero)
+    codes, x_hat_sq = encode_u8(base_f32, scale, zero, levels=levels)
+    nbr0 = graph.neighbors[0]
+    N, K = nbr0.shape
+    members_np = np.asarray(members, dtype=np.int32)
+    NG, G = members_np.shape
+    if bits == 4 and (G * K) % 2:
+        raise ValueError("bits=4 requires an even candidate count per block")
+    group_of = np.zeros((N,), np.int32)
+    valid = members_np >= 0
+    group_of[members_np[valid]] = np.repeat(
+        np.arange(NG, dtype=np.int32), G).reshape(NG, G)[valid]
+    members_t = torch.from_numpy(members_np).to(dev)
+    # member-major group adjacency: row g = [nbrs(m0) || nbrs(m1) ...]; an
+    # empty member slot contributes empty ids
+    grp_nbrs = torch.where((members_t >= 0)[:, :, None],
+                           nbr0[members_t.clamp_min(0).long()],
+                           EMPTY_ID).reshape(NG, G * K)
+    blocks, ids, sq = _assemble_blocks(codes, x_hat_sq, grp_nbrs, bits=bits)
     rep_ids = graph.translation[1].to(torch.int32)
     rep_vecs = base_f32[rep_ids.long()]
     return FusedIndex(
-        nbr_ids=adj.nbr_ids,
-        blocks=adj.blocks,
-        nbr_sq=adj.nbr_sq,
+        nbr_ids=ids,
+        blocks=blocks,
+        nbr_sq=sq,
+        group_of=torch.from_numpy(group_of).to(dev),
+        members=members_t,
         scale=scale,
         zero=zero,
         rep_ids=rep_ids,
         rep_vecs=rep_vecs,
         rep_sq=squared_norms(rep_vecs),
-        nn1_stats=graph.nn1_stats.to(base.device),
+        nn1_stats=graph.nn1_stats.to(dev),
     )
+
+
+def fused_index_matches_graph(index, graph, k_build: int) -> bool:
+    """Whether a (possibly stale) index or its meta belongs to this graph.
+
+    A full :class:`FusedIndex` must hold exactly its members' current
+    layer-0 neighbour ids (in its fetch-column order). A
+    :class:`FusedIndexMeta` re-derives its adjacency from the current graph
+    at assembly, so it must carry this graph's fingerprint: a matching from
+    another graph pairs badly and its quantizer may not fit this base."""
+    nbr0 = graph.neighbors[0]
+    nbr0 = nbr0.cpu().numpy() if isinstance(nbr0, torch.Tensor) else np.asarray(nbr0)
+    N, K = nbr0.shape
+    if K != k_build:
+        return False
+    m = index.members
+    m = m.cpu().numpy() if isinstance(m, torch.Tensor) else np.asarray(m)
+    if m.ndim != 2:
+        return False
+    flat = np.sort(m[m >= 0].ravel())
+    if flat.shape != (N,) or not np.array_equal(flat, np.arange(N)):
+        return False
+    if isinstance(index, FusedIndexMeta):
+        return bool(np.any(index.graph_fp)
+                    and np.array_equal(index.graph_fp, graph_fingerprint(graph)))
+    if index.k_build != K or tuple(index.group_of.shape) != (N,):
+        return False
+    expected = np.where((m >= 0)[:, :, None], nbr0[np.clip(m, 0, None)],
+                        EMPTY_ID).reshape(m.shape[0], m.shape[1] * K)
+    if index.bits == 4:
+        expected = np.concatenate([expected[:, 0::2], expected[:, 1::2]], axis=1)
+    return np.array_equal(index.nbr_ids.cpu().numpy(), expected)
+
+
+def meta_of(index, graph=None) -> FusedIndexMeta:
+    """The persistable meta of an index (host arrays of a few MB, never the
+    inline-code tables). Pass the source ``graph`` to stamp the staleness
+    fingerprint; without it the meta is rejected by any later load."""
+    if isinstance(index, FusedIndexMeta):
+        return index
+    return FusedIndexMeta(
+        members=index.members.cpu().numpy(),
+        scale=index.scale.cpu().numpy(),
+        zero=index.zero.cpu().numpy(),
+        graph_fp=(graph_fingerprint(graph) if graph is not None
+                  else np.zeros((32,), np.uint8)),
+        bits=np.asarray([index.bits], np.int32),
+    )
+
+
+def save_fused_index(path, index, graph=None) -> None:
+    """Write the index's meta as a ``.fused.npz`` sidecar (``meta-v2``: the
+    JAX package reads it, and this reads the JAX package's). Pass ``graph``
+    so that the sidecar carries the fingerprint a later load checks."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    m = meta_of(index, graph)
+    header = {"format": "meta-v2", "n": int((np.asarray(m.members) >= 0).sum()),
+              "group": int(m.members.shape[1])}
+    np.savez(path, meta=json.dumps(header),
+             **{k: np.asarray(v) for k, v in m._asdict().items()})
+
+
+def load_fused_index(path) -> FusedIndexMeta:
+    """Read a sidecar as its meta. A sidecar older than ``meta-v2`` (no
+    ``graph_fp``) loads with an all-zeros fingerprint, which
+    :func:`fused_index_matches_graph` rejects; one without ``bits`` is
+    uint8."""
+    with np.load(Path(path), allow_pickle=False) as f:
+        vals = {}
+        for k in FusedIndexMeta._fields:
+            if k == "graph_fp" and k not in f:
+                vals[k] = np.zeros((32,), np.uint8)
+            elif k == "bits" and k not in f:
+                vals[k] = np.asarray([8], np.int32)
+            else:
+                vals[k] = np.asarray(f[k])
+        return FusedIndexMeta(**vals)
 
 
 def _code_dists(q_vecs, q_sq, anchors, index, measure):
     """Distances from each row's query to its anchors' inline neighbours.
 
-    anchors: [B, P] i32 (-1 = empty). Returns (ids [B, P*K], d [B, P*K]).
-    One contiguous block fetch per anchor: THE hot memory access, run by the
-    kernel on the card.
+    anchors: [B, P] i32 (-1 = empty). Returns (ids [B, P*Kc], d [B, P*Kc]),
+    Kc = index.cand_per_fetch. One contiguous block fetch per anchor's
+    *group* -- THE hot memory access, run by the kernel on the card; anchors
+    of a row that share a group collapse to one fetch (the later ones become
+    empty, -1, blocks, whose lanes the kernel leaves unwritten).
     """
     B, P = anchors.shape
     Kc = index.cand_per_fetch
-    safe = anchors.clamp_min(0).long()
-    live = (anchors >= 0)[:, :, None]
+    group_of = getattr(index, "group_of", None)
+    if group_of is not None and index.group > 1:
+        blk = torch.where(anchors >= 0, group_of[anchors.clamp_min(0).long()],
+                          EMPTY_ID)
+        # keep the first anchor of each group in the row, blank the rest
+        eq = blk[:, :, None] == blk[:, None, :]
+        lower = torch.tril(torch.ones((P, P), dtype=torch.bool,
+                                      device=blk.device), diagonal=-1)
+        dup = torch.any(eq & lower[None] & (blk[:, None, :] >= 0), dim=-1)
+        blk = torch.where(dup, EMPTY_ID, blk).contiguous()
+    else:
+        blk = anchors
+    safe = blk.clamp_min(0).long()
+    live = (blk >= 0)[:, :, None]
     ids = torch.where(live, index.nbr_ids[safe], EMPTY_ID).reshape(B, P * Kc)
     sq = torch.where(live, index.nbr_sq[safe], EMPTY_DIST).reshape(B, P * Kc)
     # dot(q, x_hat) = (q * scale) . codes + q . zero
     qs = q_vecs * index.scale[None, :]
-    dot = adjacency_dot(qs, anchors, index.blocks).reshape(B, P * Kc)
+    nibbles = index.blocks.shape[1] != Kc  # int4: two neighbours per row
+    dot = adjacency_dot(qs, blk, index.blocks, nibbles=nibbles).reshape(B, P * Kc)
     dot = dot + (q_vecs @ index.zero)[:, None]
     d = finish(dot, q_sq[:, None], sq, measure)
     bad = (ids == EMPTY_ID) | ~torch.isfinite(sq)

@@ -63,7 +63,7 @@ def test_end_to_end_build_modes(data, mode, record_property):
     if mode == "f32":
         # no quantized walk: no quantizer fit and no adjacency inlined
         assert not any(p.startswith(("quantize", "adj")) for p in phases)
-        assert g._quantizer is None
+        assert g._shards[0].quantizer is None
     else:
         assert any(p.startswith("adj") for p in phases)
         sym = g.last_build_stats["shards"][0]["sym"]

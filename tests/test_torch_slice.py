@@ -246,12 +246,11 @@ def test_row_engine_default_and_async(data, port):
 
 def test_outside_the_slice_raises(data, port):
     _, query, _, _ = data
+    # several devices are the one part of the surface left to port
     with pytest.raises(NotImplementedError):
-        port.set_shard_size(N // 2)  # several shards
+        port.set_devices(["cpu", "cpu"])
     with pytest.raises(NotImplementedError):
-        port.build_fused_index(group=2)
-    with pytest.raises(NotImplementedError):
-        port.build_fused_index(bits=4)
+        port.set_gpus([0, 1])
     # a kwarg of the other engine is a tuning mistake, as in the reference
     with pytest.raises(ValueError):
         port.query(query[:10], 10, 0.5, 16, engine="fused",
