@@ -8,7 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Device: print the ``nvidia-smi`` name and power-limit line; a CUDA device
    is required (there is no CPU fallback).
 2. Kernel build: compile ``ggnn_torch/csrc/adjacency_dot.cu`` from this
-   checkout and print the seconds it took.
+   checkout and print the seconds it took, then each kernel's registers,
+   shared and local (spill) bytes (``cuobjdump -res-usage``) and the count
+   of ``I2F*`` instructions in its SASS (``cuobjdump -sass``; 0 by design),
+   or "not available" where the toolkit has no ``cuobjdump``.
 3. Kernel against plain: ``adjacency_dot`` vs ``adjacency_dot_plain`` on the
    card at the paths' shapes (B=8192 rows, P=8 anchors, D=128 bytes per
    code row, ~10% empty anchors: 48 rows per block for group 1, 24 for
@@ -23,7 +26,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    cheapest first until c@1 >= 0.90. QPS is timed with CUDA events around
    the queries alone, queries already on the card and results left there.
    The kernel's launch counter must rise during the build and again during
-   the queries.
+   the queries. Then one call at the operating point runs under
+   ``torch.profiler``: its host-clock ms, the device's busy ms and the
+   adjacency kernel's launches and ms in it.
 5. Row engine on the same graph and queries (``engine="row"``,
    ``pops_per_iter=8``, ``fetch_cap_fraction=0.75``): the (tau, pop budget)
    sweep ``ROW_SWEEP`` cheapest first until c@1 >= 0.90, timed like phase 4
@@ -69,7 +74,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    move -- each block a live anchor names read once, the query rows and
    anchors read once, each live output lane written once -- at the H100's
    3.35 TB/s, against 2 flops per code at 67 TFLOP/s f32; the share of it
-   reached; the int4, group-2 and real-anchor numbers; launches per path),
+   reached; the int4, group-2 and real-anchor numbers; launches per path;
+   the resources and the I2F count of phase 2),
    then the last line ``{"ok": true, "device": {...}}``.
 
 Every phase prints its seconds. Kernel launch counts are set to 0 just
@@ -152,10 +158,10 @@ def time_ms(fn, device, reps=10, warmup=2):
     return (time.perf_counter() - t0) * 1e3 / reps, out
 
 
-def check_kernel(device, nibbles, CR, B=8192, P=8, Nb=N):
-    """Kernel vs its plain version on synthetic inputs at one of the paths'
-    shapes: ``CR`` code rows per block (48 for group 1, 96 for group 2, 24
-    for int4 at k=48) over ``Nb`` blocks, ~10% empty anchors."""
+def synthetic_inputs(device, nibbles, CR, B=8192, P=8, Nb=N):
+    """Kernel inputs at one of the paths' shapes: ``CR`` code rows per block
+    (48 for group 1, 96 for group 2, 24 for int4 at k=48) over ``Nb``
+    blocks, ~10% empty anchors."""
     gen = torch.Generator(device=device).manual_seed(1 + nibbles)
     # query rows at the main path's magnitudes (uint8-range data, scale ~1)
     qs = torch.rand((B, D), generator=gen, device=device) * 255.0
@@ -165,7 +171,31 @@ def check_kernel(device, nibbles, CR, B=8192, P=8, Nb=N):
     anchors = torch.where(empty, -1, anchors)
     blocks = torch.randint(0, 256, (Nb, CR, D), generator=gen, device=device,
                            dtype=torch.uint8)
+    return qs, anchors, blocks
+
+
+def check_kernel(device, nibbles, CR, B=8192, P=8, Nb=N):
+    """Kernel vs its plain version on :func:`synthetic_inputs`."""
+    qs, anchors, blocks = synthetic_inputs(device, nibbles, CR, B=B, P=P, Nb=Nb)
     return measure_kernel(device, qs, anchors, blocks, nibbles, "synthetic")
+
+
+def bound(anchors, blocks, nibbles):
+    """The least time the card could take for one kernel call: each block
+    that a live anchor names read once, the query rows and anchors read
+    once, each live output lane written once; 2 flops per code. Returns
+    (bytes, flops, bound ms, "bytes" or "operations")."""
+    B, P = anchors.shape
+    _, CR, Dq = blocks.shape
+    K = 2 * CR if nibbles else CR
+    live = anchors >= 0
+    n_live = int(live.sum())
+    n_blocks = int(torch.unique(anchors[live]).numel())
+    nbytes = n_blocks * CR * Dq + B * Dq * 4 + B * P * 4 + n_live * K * 4
+    flops = 2 * n_live * K * Dq
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOP_S * 1e3
+    return nbytes, flops, max(bytes_ms, ops_ms), (
+        "bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def measure_kernel(device, qs, anchors, blocks, nibbles, label):
@@ -184,18 +214,12 @@ def measure_kernel(device, qs, anchors, blocks, nibbles, label):
                                                     nibbles=nibbles), device)
     plain_ms, _ = time_ms(lambda: adjacency.adjacency_dot_plain(
         qs, anchors, blocks, nibbles=nibbles), device)
-    # the least time for this call: each block that a live anchor names read
-    # once, the query rows and anchors read once, each live output lane
-    # written once; 2 flops per code
+    nbytes, flops, bound_ms, bound_by = bound(anchors, blocks, nibbles)
     B, P = anchors.shape
     _, CR, Dq = blocks.shape
-    K = ref.shape[2]
     n_live = int(live[:, :, 0].sum())
     n_blocks = int(torch.unique(anchors[anchors >= 0]).numel())
-    nbytes = n_blocks * CR * Dq + B * Dq * 4 + B * P * 4 + n_live * K * 4
-    flops = 2 * n_live * K * Dq
-    bytes_ms, ops_ms = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOP_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    ops_ms = flops / F32_FLOP_S * 1e3
     gbs = n_live * CR * Dq / (ms * 1e-3) / 1e9
     print(f"adjacency_dot {label} nibbles={nibbles} B={B} P={P} CR={CR} "
           f"blocks={blocks.shape[0]} D={Dq}: live anchors {n_live}, distinct "
@@ -205,8 +229,7 @@ def measure_kernel(device, qs, anchors, blocks, nibbles, label):
           f"TFLOP/s: {ops_ms:.4f} ms) | share of bound {bound_ms / ms:.3f}",
           flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_share": bound_ms / ms, "bytes": nbytes}
 
 
@@ -233,6 +256,44 @@ def kernel_on_real_anchors(device, g, query_dev, point, label):
     qs, anchors, blocks, nibbles = calls[-1]
     return measure_kernel(device, qs, anchors, blocks, nibbles,
                           f"real anchors ({label})")
+
+
+def profile_call(device, fn, label):
+    """One call of ``fn`` (after one warm-up) under ``torch.profiler``: its
+    host-clock ms under the profiler, the ms in which the card ran a kernel
+    or a copy (the union of their spans in the trace), and the adjacency
+    kernel's launches and device ms -- what tells a slower call's host from
+    its device. None on the CPU rehearsal, which has no device trace."""
+    if device.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory(prefix="ggnn_smoke_trace_") as tmp:
+        prof.export_chrome_trace(str(Path(tmp) / "trace.json"))
+        events = json.loads((Path(tmp) / "trace.json").read_text())["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    adj = [e["dur"] for e in kernels if e["name"].startswith("adjacency_dot")]
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+           "busy_share": busy_us / 1e3 / wall_ms, "kernels": len(kernels),
+           "adjacency_launches": len(adj), "adjacency_ms": sum(adj) / 1e3}
+    print(f"profile of one {label} call: {wall_ms:.3f} ms on the host clock "
+          f"under the profiler | device busy {out['device_busy_ms']:.3f} ms "
+          f"({out['busy_share']:.3f}) in {len(kernels)} kernels | adjacency "
+          f"kernel {len(adj)} launches, {out['adjacency_ms']:.3f} ms", flush=True)
+    return out
 
 
 def _launched(count, what, device):
@@ -349,8 +410,11 @@ def main_path(device, n=N, nq=NQ):
           f"{launches_build}, queries {launches_total - launches_build}",
           flush=True)
     real = kernel_on_real_anchors(device, g, query_dev, best, "group 1")
+    profile = profile_call(device, lambda: g.query(
+        query_dev, K_QUERY, best["tau"], best["iters"],
+        **dict(QKW, pops_per_iter=best["P"])), "fused query")
     summary = {"launches": launches_total, "build_s": build_s, "bf_s": bf_s,
-               "real": real, **best}
+               "real": real, "profile": profile, **best}
     return summary, {"g": g, "base": base, "query": query,
                      "query_dev": query_dev, "evaluator": evaluator}
 
@@ -597,6 +661,18 @@ def main():
 
     build_s = adjacency.build_kernel()
     print(f"kernel build: {build_s:.2f} s", flush=True)
+    # registers, shared and local (spill) bytes per kernel, and the I2F
+    # count of its SASS, from the toolkit's cuobjdump
+    resources, i2f = adjacency.kernel_resources(), "not available"
+    if resources is None:
+        resources = "not available"
+    else:
+        resources = {k: {f: r[f] for f in ("REG", "SHARED", "LOCAL", "STACK", "I2F")
+                         if f in r} for k, r in resources.items()}
+        i2f = sum(r.get("I2F", 0) for r in resources.values())
+    print(f"kernel resources (cuobjdump -res-usage; LOCAL holds spills): "
+          f"{json.dumps(resources)} | I2F instructions in the SASS "
+          f"(cuobjdump -sass): {i2f}", flush=True)
     t0 = _phase("kernel build", t0)
     u8 = check_kernel(device, False, 48)
     int4 = check_kernel(device, True, 24)
@@ -632,7 +708,7 @@ def main():
     t0 = _phase("benchmark CLI (build + store, load)", t0)
     print("summary: " + json.dumps({
         "fused": {k: summary[k] for k in ("tau", "iters", "P", "qps", "c1",
-                                          "c10", "build_s")},
+                                          "c10", "build_s", "profile")},
         "row": row,
         "layouts": {k: {f: v for f, v in r.items() if f != "real"}
                     for k, r in layouts.items()}, "f32_fetch_build": f32,
@@ -670,6 +746,8 @@ def main():
                          "group2": numbers(layouts["group2"]["real"]),
                          "int4": numbers(layouts["int4"]["real"])},
         "launches_per_path": per_path,
+        "resources": resources,
+        "i2f": i2f,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -30,6 +31,7 @@ __all__ = [
     "adjacency_dot",
     "adjacency_dot_plain",
     "build_kernel",
+    "kernel_resources",
     "launches",
     "launches_nibbles",
     "KERNEL_SOURCE",
@@ -48,7 +50,7 @@ _NVCC_FLAGS = (
 launches = 0
 launches_nibbles = 0
 
-_lib = None
+_launch_fn = None
 _lib_lock = threading.Lock()
 
 
@@ -81,48 +83,112 @@ def _nvcc() -> str:
     return found
 
 
-def build_kernel() -> float:
-    """Compile the kernel's shared library unless it is newer than its
-    source. Returns the seconds the build took (0.0 when skipped)."""
-    if (_LIB_PATH.is_file()
-            and _LIB_PATH.stat().st_mtime >= KERNEL_SOURCE.stat().st_mtime):
-        return 0.0
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def _compile(source: Path, target: Path) -> float:
+    """Compile ``source`` into the shared library ``target``. Returns the
+    seconds it took."""
+    target.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     # build beside the target and rename: concurrent builders never load a
     # half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(KERNEL_SOURCE)],
+            [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(source)],
             capture_output=True, text=True,
         )
         if proc.returncode:
             raise RuntimeError(
-                f"nvcc failed on {KERNEL_SOURCE} ({proc.returncode}):\n"
+                f"nvcc failed on {source} ({proc.returncode}):\n"
                 f"{proc.stdout}{proc.stderr}"
             )
-        os.replace(tmp, _LIB_PATH)
+        os.replace(tmp, target)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return time.perf_counter() - t0
 
 
+def build_kernel() -> float:
+    """Compile the kernel's shared library unless it is newer than its
+    source. Returns the seconds the build took (0.0 when skipped)."""
+    if (_LIB_PATH.is_file()
+            and _LIB_PATH.stat().st_mtime >= KERNEL_SOURCE.stat().st_mtime):
+        return 0.0
+    return _compile(KERNEL_SOURCE, _LIB_PATH)
+
+
+def _bind(path: Path):
+    """The C entry point ``adjacency_dot_launch`` of a built library."""
+    fn = ctypes.CDLL(str(path)).adjacency_dot_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _load():
-    global _lib
+    global _launch_fn
     with _lib_lock:
-        if _lib is None:
+        if _launch_fn is None:
             build_kernel()
-            lib = ctypes.CDLL(str(_LIB_PATH))
-            fn = lib.adjacency_dot_launch
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+            _launch_fn = _bind(_LIB_PATH)
+    return _launch_fn
+
+
+def parse_res_usage(text: str) -> dict:
+    """``cuobjdump -res-usage`` output -> {kernel: {"REG": n, "SHARED": n,
+    "LOCAL": n, ...}} (LOCAL: local memory per thread, where spills go)."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function\s+(\S+?):?\s*$", line)
+        if m:
+            name = m.group(1)
+        elif name is not None and "REG:" in line:
+            out[name] = {k: int(v) for k, v in
+                         re.findall(r"([A-Z_]+(?:\[\d+\])?):(\d+)", line)}
+            name = None
+    return out
+
+
+def count_opcodes(sass: str, prefix: str) -> dict:
+    """SASS instructions (``cuobjdump -sass``) whose opcode starts with
+    ``prefix``, per kernel."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = 0
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                     line)
+        if m and name is not None and m.group(1).startswith(prefix):
+            out[name] += 1
+    return out
+
+
+def kernel_resources(lib_path: Path = _LIB_PATH):
+    """Registers, shared and local (spill) bytes of each kernel in a built
+    library and its count of int -> float conversions (``I2F*``) in the
+    SASS, read with the ``cuobjdump`` beside ``nvcc``; None where that tool
+    is missing."""
+    try:
+        tool = Path(_nvcc()).parent / "cuobjdump"
+    except RuntimeError:
+        return None
+    if not tool.is_file():
+        return None
+
+    def run(flag):
+        return subprocess.run([str(tool), flag, str(lib_path)], capture_output=True,
+                              text=True, check=True).stdout
+
+    kernels = parse_res_usage(run("-res-usage"))
+    for name, n in count_opcodes(run("-sass"), "I2F").items():
+        kernels.setdefault(name, {})["I2F"] = n
+    return kernels
 
 
 def _check(qs, anchors, blocks):
@@ -142,6 +208,17 @@ def _check(qs, anchors, blocks):
                          f"{tuple(anchors.shape)}, blocks {tuple(blocks.shape)}")
 
 
+def _check_kernel_inputs(qs, anchors, blocks):
+    """What the kernel needs beyond :func:`_check`."""
+    if qs.shape[1] % 16:
+        raise ValueError(f"adjacency_dot kernel needs D % 16 == 0, got D={qs.shape[1]}")
+    if not (qs.is_contiguous() and anchors.is_contiguous()
+            and blocks.is_contiguous()):
+        raise ValueError("adjacency_dot kernel needs contiguous inputs")
+    if qs.data_ptr() % 16 or blocks.data_ptr() % 16:
+        raise ValueError("adjacency_dot kernel needs 16-byte aligned qs and blocks")
+
+
 def adjacency_dot(qs: torch.Tensor, anchors: torch.Tensor,
                   blocks: torch.Tensor, *, nibbles: bool = False):
     """Fused fetch + dequant dot of the anchors' inline code blocks.
@@ -149,7 +226,7 @@ def adjacency_dot(qs: torch.Tensor, anchors: torch.Tensor,
     Same contract as :func:`adjacency_dot_plain`, except that the lanes of a
     -1 anchor are left unwritten on the card. CPU tensors take the plain
     version; CUDA tensors launch the kernel, which needs contiguous inputs,
-    ``D % 16 == 0`` and a 16-byte aligned ``blocks``.
+    ``D % 16 == 0`` and 16-byte aligned ``qs`` and ``blocks``.
     """
     global launches, launches_nibbles
     _check(qs, anchors, blocks)
@@ -158,27 +235,19 @@ def adjacency_dot(qs: torch.Tensor, anchors: torch.Tensor,
         return adjacency_dot_plain(qs, anchors, blocks, nibbles=nibbles)
     if dev.type != "cuda":
         raise ValueError(f"adjacency_dot: unsupported device {dev}")
+    _check_kernel_inputs(qs, anchors, blocks)
     B, D = qs.shape
     P = anchors.shape[1]
     N, CR, _ = blocks.shape
-    if D % 16:
-        raise ValueError(f"adjacency_dot kernel needs D % 16 == 0, got D={D}")
-    if not (qs.is_contiguous() and anchors.is_contiguous()
-            and blocks.is_contiguous()):
-        raise ValueError("adjacency_dot kernel needs contiguous inputs")
-    if blocks.data_ptr() % 16:
-        raise ValueError("adjacency_dot kernel needs 16-byte aligned blocks")
     out = torch.empty((B, P, 2 * CR if nibbles else CR), dtype=torch.float32,
                       device=dev)
     if B == 0 or P == 0 or CR == 0:
         return out
-    lib = _load()
+    fn = _load()
     with torch.cuda.device(dev):
-        err = lib.adjacency_dot_launch(
-            qs.data_ptr(), anchors.data_ptr(), blocks.data_ptr(),
-            out.data_ptr(), B, P, CR, D, N, int(bool(nibbles)),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        err = fn(qs.data_ptr(), anchors.data_ptr(), blocks.data_ptr(),
+                 out.data_ptr(), B, P, CR, D, N, int(bool(nibbles)),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"adjacency_dot kernel launch failed: CUDA error {err}")
     launches += 1
