@@ -8,7 +8,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Device: print the ``nvidia-smi`` name and power-limit line; a CUDA device
    is required (there is no CPU fallback).
 2. Kernel build: compile ``ggnn_torch/csrc/adjacency_dot.cu`` from this
-   checkout and print the seconds it took, then each kernel's registers,
+   checkout and print the seconds it took and the library's path (named by
+   the hash of the source and the nvcc flags), then each kernel's registers,
    shared and local (spill) bytes (``cuobjdump -res-usage``) and the count
    of ``I2F*`` instructions in its SASS (``cuobjdump -sass``; 0 by design),
    or "not available" where the toolkit has no ``cuobjdump``.
@@ -65,12 +66,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``store()``, and a fresh ``GGNN`` through ``load(48)`` and
    ``build_fused_index()`` must reuse all 4 sidecars and return the same
    ids again.
-10. The benchmark CLI: a 65,536-point base and 1,000 queries written as
-   fvecs to a temporary directory, then ``python -m ggnn_torch.benchmark
+10. Several devices: 524,288 points as 2 shards of 262,144 on two slots of
+   the one card (``set_devices(["cuda:0", "cuda:0"])``): a build with one
+   worker per slot (``num_build_workers`` must be 2; its wall seconds
+   beside the sum of the shards' seconds), the fused index (group 1, bits
+   8), brute force through the device merge, which must equal the host
+   merge's ground truth, and the fused sweep through the device merge until
+   c@1 >= 0.90 (3 timed calls after 1 warm-up). At the operating point the
+   host merge (the native merger, which must be built) returns identical
+   ids, and so does ``query_async`` on either route; the ms per call of
+   the device merge (CUDA events) and of the host merge (host clock, the
+   partials' copy to the host included) are printed. The kernel must
+   launch in the build and in the queries.
+11. The benchmark CLI: a 65,536-point base and 1,000 queries written as
+   fvecs to a temporary directory (read back by the native reader, which
+   must be built), then ``python -m ggnn_torch.benchmark
    --shard_size 32768 --fused_group 2 --graph_dir <tmp>`` twice: the first
    run builds and stores, the second loads and reuses the sidecars; both
    must exit 0 and print their c@1 lines.
-11. One JSON line with the kernel's numbers (its bound: the bytes it must
+12. One JSON line with the kernel's numbers (its bound: the bytes it must
    move -- each block a live anchor names read once, the query rows and
    anchors read once, each live output lane written once -- at the H100's
    3.35 TB/s, against 2 flops per code at 67 TFLOP/s f32; the share of it
@@ -79,7 +93,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    then the last line ``{"ok": true, "device": {...}}``.
 
 Every phase prints its seconds. Kernel launch counts are set to 0 just
-before each path runs and read just after it.
+before each path runs and read just after it. A failure prints its
+traceback to stdout and the script exits 1 without a result line.
 """
 
 import json
@@ -89,13 +104,18 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from ggnn_torch import GGNN, Evaluator, GraphConfig, store_fvecs
+from ggnn_torch.native import build as native_build
+from ggnn_torch.native import io as native_io
+from ggnn_torch.native import merge as native_merge
 from ggnn_torch.ops import adjacency
+from ggnn_torch.parallel import merge_over_devices
 from ggnn_torch.query import fused as fused_mod
 
 N, NQ, D = 262_144, 10_000, 128
@@ -117,6 +137,7 @@ ROW_SWEEP = [(0.4, 24), (0.45, 32), (0.5, 48), (0.5, 64),
 ROW_KW = {"engine": "row", "pops_per_iter": 8, "fetch_cap_fraction": 0.75}
 N_DESCENT = 65_536
 N_SHARDED, N_SHARD, MAX_DEVICE_SHARDS = 1_048_576, 262_144, 2
+N_DEVICES, SLOTS = 524_288, 2
 N_CLI, NQ_CLI, CLI_SHARD = 65_536, 1_000, 32_768
 # the H100's published peaks (SXM, 700 W): HBM bytes/s and f32 FLOP/s
 HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
@@ -594,10 +615,107 @@ def shards_path(device, n=N_SHARDED, n_shard=N_SHARD, nq=NQ):
             "launches_build": launches_build, "launches_query": launches_query}
 
 
+def devices_path(device, n=N_DEVICES, nq=NQ):
+    """Two shards on two slots of one device: build with a worker per slot,
+    fused index, brute force and the fused sweep through the device merge;
+    at the operating point the host merge (native) and ``query_async`` must
+    return the same ids. Returns the build, merge and sweep numbers and the
+    kernel launches in the build and in the queries."""
+    base, query = make_dataset(n, nq, d=D, seed=0)
+    g = GGNN(device=device)
+    g.set_devices([device] * SLOTS)
+    g.set_base(base)
+    adjacency.launches = 0
+    t0 = time.perf_counter()
+    g.build(k_build=K_BUILD, tau_build=TAU_BUILD, refinement_iterations=2)
+    build_s = time.perf_counter() - t0
+    stats = g.last_build_stats
+    launches_build = adjacency.launches
+    per_shard = [s["build_time_s"] for s in stats["shards"]]
+    print(f"devices build: {g.num_shards} x {n // g.num_shards} on slots "
+          f"{[str(d) for d in g.devices]} | workers {stats['num_build_workers']} "
+          f"| wall {stats['wall_time_s']:.3f} s, sum of shards "
+          f"{stats['sum_time_s']:.3f} s (per shard {per_shard}) | kernel "
+          f"launches {launches_build}", flush=True)
+    if stats["num_build_workers"] != SLOTS or g.num_shards != SLOTS:
+        raise AssertionError(f"{stats['num_build_workers']} build workers for "
+                             f"{g.num_shards} shards on {SLOTS} slots")
+    t0 = time.perf_counter()
+    g.build_fused_index(group=1, bits=8)
+    _sync(device)
+    index_s = time.perf_counter() - t0
+    evaluator, bf_s = ground_truth(g, base, query)
+    if g.last_merge_route != "devices":
+        raise AssertionError(f"brute force merged on the {g.last_merge_route}")
+    g.set_device_merge(False)
+    gt_host, _ = g.bf_query(query, k_gt=100)
+    g.set_device_merge(True)
+    if g.last_merge_route != "host" or not np.array_equal(gt_host, evaluator.gt):
+        raise AssertionError("brute force: the host merge's ground truth differs "
+                             "from the device merge's")
+    print(f"devices fused index {index_s:.2f} s | ground truth identical "
+          "through the device and the host merge", flush=True)
+    query_dev = torch.from_numpy(query).to(device)
+    adjacency.launches = 0
+    best = sweep(g, query_dev, base, query, evaluator, SWEEP, QKW, device,
+                 "devices fused", reps=3, warmup=1)
+    if g.last_merge_route != "devices":
+        raise AssertionError(f"the sweep merged on the {g.last_merge_route}")
+
+    kw = dict(QKW, pops_per_iter=best["P"])
+    args = (K_QUERY, best["tau"], best["iters"])
+    on_device = g.query(query_dev, *args, **kw).ids
+    if not native_merge.available():
+        raise AssertionError("the native merger is not built")
+    g.set_device_merge(False)
+    on_host = g.query(query_dev, *args, **kw).ids
+    if g.last_merge_route != "host" or not np.array_equal(on_host, on_device):
+        raise AssertionError("host-merge ids differ from the device merge's: "
+                             f"{np.mean(np.any(on_host != on_device, 1))} of rows")
+    host_ms, _ = time_ms(lambda: g.query(query_dev, *args, **kw), device,
+                         reps=3, warmup=1)
+    async_host = g.query_async(query_dev, *args, **kw).result().ids
+    g.set_device_merge(True)
+    async_dev = g.query_async(query_dev, *args, **kw).result().ids
+    if not (np.array_equal(async_host, on_device)
+            and np.array_equal(async_dev, on_device)):
+        raise AssertionError("query_async ids differ from query's")
+    launches_query = adjacency.launches
+    _launched(launches_build, "the two-slot build", device)
+    _launched(launches_query, "the two-slot queries", device)
+    # the merges alone, on one call's partials (global ids, one per shard)
+    g.set_device_merge(False)
+    partials = g._query_partials(query_dev, *args, None, "fused",
+                                 {k: v for k, v in kw.items() if k != "engine"})
+    g.set_device_merge(True)
+    device_merge_ms, _ = time_ms(lambda: merge_over_devices(partials, K_QUERY),
+                                 device)
+    host_merge_ms, _ = time_ms(lambda: g._merge_on_host(partials, K_QUERY),
+                               torch.device("cpu"))
+    print(f"devices: host merge ids identical (native merger "
+          f"{native_merge.available()}), query_async identical on both routes | "
+          f"per call of {nq} queries: device merge {device_merge_ms:.4f} ms, "
+          f"host merge {host_merge_ms:.4f} ms (partials to the host included) | "
+          f"whole query through the host merge {host_ms:.3f} ms "
+          f"({nq / (host_ms * 1e-3):.1f} QPS) | kernel launches: build "
+          f"{launches_build}, queries {launches_query}", flush=True)
+    g.close()
+    return {**best, "build_s": build_s, "build_wall_s": stats["wall_time_s"],
+            "build_sum_s": stats["sum_time_s"], "build_s_per_shard": per_shard,
+            "num_build_workers": stats["num_build_workers"], "index_s": index_s,
+            "bf_s": bf_s, "device_merge_ms": device_merge_ms,
+            "host_merge_ms": host_merge_ms, "host_route_ms": host_ms,
+            "launches_build": launches_build, "launches_query": launches_query}
+
+
 def cli_path(device, n=N_CLI, nq=NQ_CLI, n_shard=CLI_SHARD):
-    """``python -m ggnn_torch.benchmark`` twice on fvecs files: the first run
-    builds and stores the parts with their group-2 sidecars, the second
-    loads them and reuses the sidecars. Returns each run's seconds."""
+    """``python -m ggnn_torch.benchmark`` twice on fvecs files (read by the
+    native reader): the first run builds and stores the parts with their
+    group-2 sidecars, the second loads them and reuses the sidecars.
+    Returns each run's seconds."""
+    if not native_io.available():
+        raise AssertionError("the native TEXMEX reader is not built")
+    print(f"native reader: {native_build.library_path()}", flush=True)
     repo = Path(__file__).resolve().parent
     base, query = make_dataset(n, nq, d=D, seed=1)
     work = Path(tempfile.mkdtemp(prefix="ggnn_smoke_cli_"))
@@ -644,12 +762,7 @@ def _phase(name, t0):
     return time.perf_counter()
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
-              file=sys.stderr)
-        sys.exit(2)
-    device = torch.device("cuda", 0)
+def run(device):
     t0 = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -660,7 +773,8 @@ def main():
     t0 = _phase("device", t0)
 
     build_s = adjacency.build_kernel()
-    print(f"kernel build: {build_s:.2f} s", flush=True)
+    print(f"kernel build: {build_s:.2f} s | library {adjacency.library_path()}",
+          flush=True)
     # registers, shared and local (spill) bytes per kernel, and the I2F
     # count of its SASS, from the toolkit's cuobjdump
     resources, i2f = adjacency.kernel_resources(), "not available"
@@ -704,6 +818,10 @@ def main():
     torch.cuda.empty_cache()
     t0 = _phase("shards out of core (build, index, ground truth, sweep, "
                 "store/load)", t0)
+    devices = devices_path(device)
+    torch.cuda.empty_cache()
+    t0 = _phase("several devices (two slots: build, index, ground truth, "
+                "sweep, host merge, async)", t0)
     cli = cli_path(device)
     t0 = _phase("benchmark CLI (build + store, load)", t0)
     print("summary: " + json.dumps({
@@ -712,7 +830,8 @@ def main():
         "row": row,
         "layouts": {k: {f: v for f, v in r.items() if f != "real"}
                     for k, r in layouts.items()}, "f32_fetch_build": f32,
-        "descent_walk_build": descent, "sharded": sharded, "cli_s": cli,
+        "descent_walk_build": descent, "sharded": sharded, "devices": devices,
+        "cli_s": cli,
     }), flush=True)
 
     per_path = {
@@ -723,6 +842,8 @@ def main():
         "descent_build": launches_descent,
         "sharded_build": sharded["launches_build"],
         "sharded_queries": sharded["launches_query"],
+        "devices_build": devices["launches_build"],
+        "devices_queries": devices["launches_query"],
         "row_queries": 0, "f32_fetch_build": 0,
     }
 
@@ -750,6 +871,19 @@ def main():
         "i2f": i2f,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        sys.exit(2)
+    try:
+        run(torch.device("cuda", 0))
+    except Exception:
+        traceback.print_exc(file=sys.stdout)
+        sys.stdout.flush()
+        sys.exit(1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,9 @@
 
 Equivalent of the reference's ``GenericDataset``/``Dataset<T>``
 (include/ggnn/base/dataset.cuh:38-166, src/ggnn/base/dataset.cu:118-233).
-Data stays on the host; ``GGNN`` moves each shard to its device.
+Data stays on the host; ``GGNN`` moves each shard to its device. The
+TEXMEX reader is the native one (``ggnn_torch/native/io.py``) where that
+library is built, else the numpy reader here.
 
 Supported on-disk formats:
   * ``.fvecs`` / ``.bvecs`` / ``.ivecs``  (TEXMEX: per-row int32 dim header)
@@ -50,9 +52,20 @@ def load_vecs(path: str | os.PathLike, from_row: int = 0,
               num: int | None = None) -> np.ndarray:
     """Load a TEXMEX ``.{f,b,i}vecs`` file as an ``[N, D]`` array, rows
     ``from_row`` to ``from_row + num`` (dataset.cu:118-202; the bindings'
-    ``from``/``num``, nanobind.cu:163-164)."""
+    ``from``/``num``, nanobind.cu:163-164), with the native reader when it
+    is built."""
     path = Path(path)
     dtype = _vecs_dtype(path)
+    from ggnn_torch.native import io as native_io  # noqa: PLC0415
+
+    if native_io.available():
+        return native_io.load_vecs(path, dtype, from_row, num)
+    return _load_vecs_numpy(path, dtype, from_row, num)
+
+
+def _load_vecs_numpy(path: Path, dtype, from_row: int = 0,
+                     num: int | None = None) -> np.ndarray:
+    """The numpy reader: a memory map with the row headers stripped."""
     itemsize = np.dtype(dtype).itemsize
     file_size = path.stat().st_size
     with open(path, "rb") as f:

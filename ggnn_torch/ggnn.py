@@ -1,29 +1,41 @@
-"""Public GGNN API of the PyTorch port: shards on one device, out of core.
+"""Public GGNN API of the PyTorch port: shards over device slots, out of core.
 
 Equivalent of the reference's ``GGNN`` facade + ``GPUInstance`` runtime
-(src/ggnn/base/ggnn.cu:53-564, src/ggnn/base/gpu_instance.cu:136-790) on one
-device:
+(src/ggnn/base/ggnn.cu:53-564, src/ggnn/base/gpu_instance.cu:136-790):
 
 * The base is split into ``N_shard``-sized shards with independent graphs
-  (the reference's "multi-GPU through sharding", README.md:4-5), built one
-  after another with per-shard seeds.
-* Shards that do not all fit in device memory rotate through it: device ->
-  host RAM -> ``part_<id>.npz`` files (the reference's GPU / pinned-CPU /
-  disk swapping, gpu_instance.cu:371-467). An evicted fused index keeps only
-  its meta (group matching + quantizer) and is re-assembled at stage-in.
-  Device transfers run on the calling thread, in its stream's order; a
-  thread pool does the disk I/O (spills, the next shard's read-back,
-  store/load).
-* Per-shard results merge on the device with a stable sorted top-k (the
-  reference's per-GPU segmented sort, gpu_instance.cu:745-790).
-
-Several devices are not ported yet (ROADMAP Queue 1 item 11).
+  (the reference's "multi-GPU through sharding", README.md:4-5), shard
+  ``i`` built from seed ``1234 + i``. The shards go in contiguous blocks to
+  the *slots* of the device list (``set_devices``; one slot by default).
+  Shard ownership is keyed by slot, so two slots may name one device (two
+  slots of one card, or of the CPU), where the JAX package would collapse
+  them into one; the results are the same either way.
+* ``build`` runs one worker thread per slot (the reference's one thread per
+  GPU, ggnn.cu:222-230), on CUDA each with a stream of its own.
+* Shards that do not all fit in device memory rotate through their device:
+  device -> host RAM -> ``part_<id>.npz`` files (the reference's GPU /
+  pinned-CPU / disk swapping, gpu_instance.cu:371-467). An evicted fused
+  index keeps only its meta (group matching + quantizer) and is
+  re-assembled at stage-in. Device transfers run on the calling thread, in
+  its stream's order; a thread pool does the disk I/O (spills, the next
+  shard's read-back, store/load) and the host merge of ``query_async``.
+* Results merge by one of three routes (``last_merge_route``): one slot's
+  shards on its device with a stable sorted top-k (the reference's per-GPU
+  segmented sort, gpu_instance.cu:745-790); with several slots that each
+  hold one resident shard, every shard walks on its own device, one
+  thread per device, and the partials merge on the first slot's device
+  (``parallel/sharded.py``, the JAX package's on-device merge;
+  ``set_device_merge(False)`` turns it off); otherwise on the host, by the
+  native k-way merger (``native/merge.py``, result_merger.cpp:79-142) or,
+  where that is not built, numpy's stable sort. All three keep the same tie
+  order, so they return the same ids.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
+from collections import Counter
 import tempfile
 import threading
 import time
@@ -38,6 +50,7 @@ from ggnn_torch.build.construction import build_graph
 from ggnn_torch.config import MAX_KQUERY, DistanceMeasure, GraphConfig
 from ggnn_torch.dataset import Dataset
 from ggnn_torch.graph import Graph, load_graph_shard, save_graph_shard
+from ggnn_torch.native import merge as native_merge
 from ggnn_torch.ops.bruteforce import bruteforce_knn
 from ggnn_torch.ops.distance import squared_norms
 from ggnn_torch.query.ann import ann_query
@@ -51,12 +64,17 @@ from ggnn_torch.query.fused import (
     meta_of,
     save_fused_index,
 )
-from ggnn_torch.utils.logging import vlog
+from ggnn_torch.parallel.sharded import (
+    merge_over_devices,
+    per_device,
+    run_on_devices,
+    sharded_bf_query,
+    sharded_fused_query,
+    sharded_query,
+)
+from ggnn_torch.utils.logging import logger, vlog
 
 __all__ = ["GGNN", "Results", "ResultsFuture"]
-
-_MANY_DEVICES = ("several devices are not ported yet (ROADMAP Queue 1 "
-                 "item 11: per-device shards and the host merge)")
 
 
 class Results(tuple):
@@ -106,9 +124,18 @@ def _as_tensor(data, device=None) -> torch.Tensor:
 
 
 def _device(device) -> torch.device:
+    """A device the caller named, with its index on CUDA; raises where there
+    is no such CUDA device (there is no CPU fallback)."""
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("GGNN(device='cuda'): no CUDA device is available")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"GGNN(device={str(device)!r}): no CUDA device "
+                               "is available")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device.index >= torch.cuda.device_count():
+            raise RuntimeError(f"GGNN(device={str(device)!r}): only "
+                               f"{torch.cuda.device_count()} CUDA devices")
     return device
 
 
@@ -116,8 +143,10 @@ class _Shard:
     """One base shard + its graph and fused index in their tiers (the
     reference's GPUBuffer slot, gpu_instance.cuh:136-178)."""
 
-    def __init__(self, shard_id: int, device: torch.device, base_host):
+    def __init__(self, shard_id: int, slot: int, device: torch.device,
+                 base_host):
         self.shard_id = shard_id
+        self.slot = slot  # index into GGNN's device list
         self.device = device
         self.base_host = base_host
         self.base_dev = None
@@ -183,6 +212,10 @@ class _Shard:
     def evict(self):
         """Swap the shard out of device memory, keeping a host copy of the
         graph and the fused index's meta (gpu_instance.cu:371-420)."""
+        if self.device.type == "cuda":
+            # the tensors may come from a build worker's stream: no stream
+            # may still read them when their memory goes back to its pool
+            torch.cuda.synchronize(self.device)
         if self.graph is not None and self.graph_host is None:
             self.graph_host = self.graph.to("cpu")
         if self.fused_index is not None and self.fused_index_host is None:
@@ -194,7 +227,8 @@ class _Shard:
 
 
 class GGNN:
-    """Graph-based nearest-neighbor search on one device, in shards.
+    """Graph-based nearest-neighbor search in shards, on one device or
+    several.
 
     Usage matches the reference Python bindings::
 
@@ -206,6 +240,7 @@ class GGNN:
         g.build_fused_index()
         ids, dists = g.query(queries, 10, tau_query=0.5, engine="fused")
         gt_ids, gt_dists = g.bf_query(queries, k_gt=100)
+        g.set_devices(["cuda:0", "cuda:1"])    # several slots (before build)
 
     ``device="cuda"`` needs a CUDA device and raises without one; it never
     carries on on the CPU. ``tier_stats`` counts the out-of-core moves
@@ -230,7 +265,7 @@ class GGNN:
     }
 
     def __init__(self, device="cuda"):
-        self.device = _device(device)
+        self._devices = [_device(device)]  # one entry per slot
         self._base: torch.Tensor | None = None
         self._n_shard = 0
         self._shards: list[_Shard] = []
@@ -243,6 +278,8 @@ class GGNN:
         self._reserved_device_memory = 0
         self._max_device_shards: int | None = None  # None = from device memory
         self._back_to_front = False
+        self._device_merge = True
+        self.last_merge_route: str | None = None  # "device", "devices", "host"
         self._pool: ThreadPoolExecutor | None = None
         self._tmp_spill_dir: Path | None = None
         self._stats_lock = threading.Lock()
@@ -273,19 +310,39 @@ class GGNN:
         self._n_shard = int(n_shard)
         self._shards = []
 
+    @property
+    def device(self) -> torch.device:
+        """The first slot's device: merged results land there."""
+        return self._devices[0]
+
+    @property
+    def devices(self) -> list[torch.device]:
+        """The device of each slot."""
+        return list(self._devices)
+
     def set_devices(self, devices) -> None:
-        devices = list(devices)
-        if len(devices) != 1:
-            raise NotImplementedError(_MANY_DEVICES)
-        self.device = _device(devices[0])
+        """One slot per entry; the shards go to the slots in contiguous
+        blocks. An entry may repeat a device: each slot then builds on its
+        own worker and holds its own shards."""
+        devices = [_device(d) for d in devices]
+        if not devices:
+            raise ValueError("set_devices needs at least one device")
+        self._devices = devices
         self._shards = []
 
     def set_gpus(self, ids) -> None:
-        """Reference-compatible alias: select the CUDA device by index."""
-        ids = list(ids)
-        if len(ids) != 1:
-            raise NotImplementedError(_MANY_DEVICES)
-        self.set_devices([torch.device("cuda", int(ids[0]))])
+        """Reference-compatible alias: one slot per CUDA device index."""
+        self.set_devices([torch.device("cuda", int(i)) for i in ids])
+
+    def set_device_merge(self, enabled: bool = True) -> None:
+        """With several slots that each hold one resident shard, walk every
+        shard on its own device, one thread per device, and merge the
+        partials on the first slot's device (on by default); off, they take
+        the per-shard sweep and the host merge. The ids are the same."""
+        self._device_merge = bool(enabled)
+
+    # the JAX package's name for the same switch
+    set_ici_merge = set_device_merge
 
     def set_cpu_memory_limit(self, limit: int) -> None:
         """Bound the host RAM of evicted shards' graph caches; beyond it an
@@ -314,37 +371,57 @@ class GGNN:
         if self._base is None:
             raise RuntimeError("no base data set -- call set_base() first")
         N, D = self._base.shape
-        n_shard = self._n_shard or N
+        num_slots = len(self._devices)
+        n_shard = self._n_shard
+        if n_shard == 0:
+            if N % num_slots:
+                raise ValueError(
+                    f"N={N} must be divisible by the number of devices "
+                    f"{num_slots} (or set an explicit shard size)")
+            n_shard = N // num_slots
         if N % n_shard:
             raise ValueError(f"N={N} not divisible by shard size {n_shard}")
+        num_shards = N // n_shard
+        if num_shards % num_slots:
+            raise ValueError(f"number of shards {num_shards} not divisible by "
+                             f"number of devices {num_slots}")
         self._cfg = GraphConfig.create(N=n_shard, D=D, KBuild=k_build)
         vlog(1, "%s", self._cfg.describe())
+        # contiguous blocks of shards per slot (ggnn.cu's partitioning)
+        per_slot = num_shards // num_slots
         self._shards = [
-            _Shard(i, self.device, self._base[i * n_shard : (i + 1) * n_shard])
-            for i in range(N // n_shard)
+            _Shard(i, i // per_slot, self._devices[i // per_slot],
+                   self._base[i * n_shard : (i + 1) * n_shard])
+            for i in range(num_shards)
         ]
 
     def _resident_budget(self, fused: bool = False) -> int:
-        """Shards allowed on the device at once: the explicit cap, else the
-        device's memory less the reserve over twice a shard's base + graph
-        (the reference's capacity planning from cudaMemGetInfo,
-        gpu_instance.cu:136-227), and its fused index where the caller
-        needs one (``fused``; u8 codes, ids and norms inline per neighbour).
-        Everything is resident on the CPU."""
+        """Shards allowed on the devices at once: the explicit cap, else,
+        for each device, its memory less the reserve over twice a shard's
+        base + graph (the reference's capacity planning from
+        cudaMemGetInfo, gpu_instance.cu:136-227), and its fused index where
+        the caller needs one (``fused``; u8 codes, ids and norms inline per
+        neighbour), at least one per slot. Everything is resident on the
+        CPU."""
         if self._max_device_shards is not None:
             return self._max_device_shards
         num_shards = len(self._shards)
-        if self._cfg is None or num_shards <= 1 or self.device.type != "cuda":
+        slots = Counter(self._devices)
+        if (self._cfg is None or num_shards <= len(self._devices)
+                or any(d.type != "cuda" for d in slots)):
             return num_shards
-        _, total = torch.cuda.mem_get_info(self.device)
         cfg = self._cfg
         per_shard = (cfg.N * cfg.D * self._base.element_size() + cfg.N * 4
                      + cfg.graph_size_bytes())
         if fused:
             per_shard += cfg.N * cfg.KBuild * (cfg.D + 8)
-        usable = max(0, total - self._reserved_device_memory)
-        # 2x headroom for the walk's scratch
-        return min(num_shards, max(1, usable // (2 * per_shard)))
+        budget = 0
+        for dev, n_slots in slots.items():
+            _, total = torch.cuda.mem_get_info(dev)
+            usable = max(0, total - self._reserved_device_memory)
+            # 2x headroom for the walk's scratch
+            budget += max(n_slots, usable // (2 * per_shard))
+        return min(num_shards, budget)
 
     def _count(self, key: str, seconds: float | None = None) -> None:
         with self._stats_lock:
@@ -366,8 +443,8 @@ class GGNN:
         dense_seed_merge: bool = True,
     ) -> None:
         """Build the search graph of every shard (ggnn.cuh:130-133), shard
-        ``i`` from seed ``1234 + i``; with more shards than the device holds
-        each is evicted once built.
+        ``i`` from seed ``1234 + i``, one worker thread per slot; with more
+        shards than the devices hold each is evicted once built.
 
         ``quantized_fetch``: merges walk their layers through the quantized
         adjacency (off by itself above the 6 GiB inline bound, or when the
@@ -380,32 +457,50 @@ class GGNN:
         self._prepare(k_build)
         budget = self._resident_budget()
         t0 = time.perf_counter()
-        stats = []
+
+        def build_slot(shards):
+            stats = []
+            for shard in shards:
+                t_start = time.perf_counter()
+                shard.ensure_base()
+                graph, s = build_graph(
+                    shard.base_dev, self._cfg, tau_build,
+                    refinement_iterations, self._measure,
+                    seed=self._build_seed + shard.shard_id,
+                    quantized_fetch=quantized_fetch, sym_mode=sym_mode,
+                    dense_seed_merge=dense_seed_merge,
+                )
+                shard.graph = graph
+                shard.quantizer = s.pop("quantizer")
+                s["wall_interval"] = (t_start, time.perf_counter())
+                stats.append(s)
+                if len(self._shards) > budget:
+                    self._evict_shard(shard)
+                vlog(0, "shard %d built in %.3f s (%.2f us/point)",
+                     shard.shard_id, s["build_time_s"],
+                     s["build_time_s"] * 1e6 / self._cfg.N)
+            return stats
+
+        by_slot: dict[int, list[_Shard]] = {}
         for shard in self._shards:
-            t_start = time.perf_counter()
-            shard.ensure_base()
-            graph, s = build_graph(
-                shard.base_dev, self._cfg, tau_build, refinement_iterations,
-                self._measure, seed=self._build_seed + shard.shard_id,
-                quantized_fetch=quantized_fetch, sym_mode=sym_mode,
-                dense_seed_merge=dense_seed_merge,
-            )
-            shard.graph = graph
-            shard.quantizer = s.pop("quantizer")
-            s["wall_interval"] = (t_start, time.perf_counter())
-            stats.append(s)
-            if len(self._shards) > budget:
-                self._evict_shard(shard)
-            vlog(0, "shard %d built in %.3f s (%.2f us/point)", shard.shard_id,
-                 s["build_time_s"], s["build_time_s"] * 1e6 / self._cfg.N)
+            by_slot.setdefault(shard.slot, []).append(shard)
+        if len(by_slot) == 1:
+            stats = build_slot(self._shards)
+        else:
+            # slots hold contiguous blocks: the workers' stats come back in
+            # shard order
+            per_slot = run_on_devices(
+                [lambda b=b: build_slot(b) for b in by_slot.values()],
+                [b[0].device for b in by_slot.values()])
+            stats = [s for slot_stats in per_slot for s in slot_stats]
         wall = time.perf_counter() - t0
         self.last_build_stats = {
             "shards": stats,
             "wall_time_s": wall,
             "sum_time_s": sum(s["build_time_s"] for s in stats),
-            "num_build_workers": 1,
+            "num_build_workers": len(by_slot),
         }
-        vlog(0, "build completed in %.3f s", wall)
+        vlog(0, "build completed in %.3f s (wall)", wall)
 
     def build_fused_index(self, group: int = 1, bits: int = 8) -> None:
         """Derive every shard's quantized-adjacency query layout
@@ -536,14 +631,14 @@ class GGNN:
     def _stage_in(self, shard: _Shard, engine: str | None = None) -> None:
         """Make a shard device-resident: disk -> host RAM if spilled, then
         host -> device (swapInPart); the fused engine also needs its index
-        re-assembled from the meta. Synchronises the device before and after,
-        so that ``stage_ins_s`` times the stage-in alone."""
+        re-assembled from the meta. Synchronises the shard's device before
+        and after, so that ``stage_ins_s`` times the stage-in alone."""
         shard.wait()
         if not (shard.graph is None or shard.base_dev is None
                 or (engine == "fused" and shard.fused_index is None)):
             return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if shard.device.type == "cuda":
+            torch.cuda.synchronize(shard.device)
         t0 = time.perf_counter()
         if shard.graph is None and shard.graph_host is None and shard.spilled:
             self._unspill_shard(shard)
@@ -551,8 +646,8 @@ class GGNN:
         shard.ensure_graph()
         if engine == "fused":
             shard.ensure_fused_index()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if shard.device.type == "cuda":
+            torch.cuda.synchronize(shard.device)
         self._count("stage_ins", time.perf_counter() - t0)
 
     def store(self) -> None:
@@ -645,7 +740,8 @@ class GGNN:
     def _query_partials(self, query, k_query, tau_query, max_iterations,
                         measure, engine, engine_kwargs):
         """Each shard's (ids with global offsets, dists), rotating shards
-        through the device when they do not all fit."""
+        through their devices when they do not all fit; or, on the device
+        merge route, one entry already merged across the slots."""
         if not self.has_graph():
             raise RuntimeError("no graph -- call build() or load() first")
         if k_query > MAX_KQUERY:
@@ -654,7 +750,12 @@ class GGNN:
         if engine == "fused" and not self.has_fused_index():
             raise RuntimeError("no fused index -- call build_fused_index() first")
         measure = DistanceMeasure(measure) if measure is not None else self._measure
-        query = _as_tensor(query, self.device)
+        query = _as_tensor(query)
+        merged = self._query_across_devices(query, k_query, tau_query,
+                                            max_iterations, measure, engine, kw)
+        if merged is not None:
+            return [merged]
+        queries = per_device(query, [s.device for s in self._shards])
         n_shard = self._cfg.N
         budget = max(1, self._resident_budget(fused=engine == "fused"))
         resident = sum(1 for s in self._shards if s.resident)
@@ -671,17 +772,21 @@ class GGNN:
             shard.wait()
             if not shard.resident:
                 while resident >= budget:
-                    victim = next((s for s in self._shards
-                                   if s.resident and s is not shard), None)
+                    # a shard on the same device first: that frees its memory
+                    victim = min((s for s in self._shards
+                                  if s.resident and s is not shard),
+                                 key=lambda s: s.device != shard.device,
+                                 default=None)
                     if victim is None:
                         break
                     self._evict_shard(victim)
                     resident -= 1
                 resident += 1
             self._stage_in(shard, engine)
+            q = queries[shard.device]
             if engine == "fused":
                 ids, dists = fused_query(
-                    query, shard.ensure_fused_index(), shard.base_dev, k_query,
+                    q, shard.ensure_fused_index(), shard.base_dev, k_query,
                     tau_query, max_iterations, measure, base_sq=shard.base_sq,
                     chunk=kw["chunk"], pops_per_iter=kw["pops_per_iter"],
                     num_seeds=kw["num_seeds"], rerank=kw["rerank"], cap=kw["cap"],
@@ -689,7 +794,7 @@ class GGNN:
                 )
             else:
                 ids, dists = ann_query(
-                    query, shard.base_dev, shard.graph, self._cfg, k_query,
+                    q, shard.base_dev, shard.graph, self._cfg, k_query,
                     tau_query, max_iterations, measure, base_sq=shard.base_sq,
                     pops_per_iter=kw["pops_per_iter"],
                     fetch_cap_fraction=kw["fetch_cap_fraction"],
@@ -709,6 +814,41 @@ class GGNN:
         return [(ids, dists) for _, ids, dists in sorted(partials,
                                                           key=lambda p: p[0])]
 
+    def _one_shard_per_slot(self) -> bool:
+        """The layout of the device merge route: several slots, each holding
+        exactly one shard (the switch on)."""
+        return (self._device_merge and len(self._devices) > 1
+                and len(self._shards) == len(self._devices))
+
+    def _query_across_devices(self, query, k_query, tau_query, max_iterations,
+                              measure, engine, kw):
+        """The device merge route (the JAX package's ``_try_ici_query``):
+        when every slot holds exactly one resident shard, each walks on its
+        own device (one thread per device) with every engine kwarg, and the
+        partials merge on the first slot's device. Returns the merged
+        (ids, dists), or None for the per-shard sweep and the host merge."""
+        if not self._one_shard_per_slot():
+            return None
+        shards = self._shards
+        for s in shards:
+            s.wait()
+            if not s.resident or s.base_dev is None:
+                return None  # out of core: the rotation takes it
+        common = dict(base_sqs=[s.base_sq for s in shards],
+                      pops_per_iter=kw["pops_per_iter"], device=self.device)
+        bases = [s.base_dev for s in shards]
+        if engine == "fused":
+            return sharded_fused_query(
+                bases, [s.ensure_fused_index() for s in shards], query,
+                k_query, tau_query, max_iterations, measure,
+                num_seeds=kw["num_seeds"], rerank=kw["rerank"], cap=kw["cap"],
+                width=kw["width"], chunk=kw["chunk"],
+                compact_levels=kw["compact_levels"], **common)
+        return sharded_query(
+            bases, [s.graph for s in shards], self._cfg, query, k_query,
+            tau_query, max_iterations, measure,
+            fetch_cap_fraction=kw["fetch_cap_fraction"], **common)
+
     def query(self, query, k_query: int, tau_query: float,
               max_iterations: int = 400, measure: DistanceMeasure | None = None,
               *, engine: str = "row", **engine_kwargs) -> Results:
@@ -723,46 +863,77 @@ class GGNN:
         partials = self._query_partials(query, k_query, tau_query,
                                         max_iterations, measure, engine,
                                         engine_kwargs)
-        return self._finalize(*self._merge_on_device(partials, k_query))
+        return self._merge_results(partials, k_query)
 
     def query_async(self, query, k_query: int, tau_query: float,
                     max_iterations: int = 400,
                     measure: DistanceMeasure | None = None, *,
                     engine: str = "row", **engine_kwargs) -> ResultsFuture:
         """Queue a query batch (either engine); the host copy of its results
-        waits until ``.result()`` is called."""
+        waits until ``.result()`` is called, and a host merge runs on the
+        I/O pool meanwhile."""
         partials = self._query_partials(query, k_query, tau_query,
                                         max_iterations, measure, engine,
                                         engine_kwargs)
+        if self._on_host(partials):
+            fut = self._io_pool().submit(
+                lambda: self._finalize_host(*self._merge_on_host(partials, k_query)))
+            return ResultsFuture(fut.result)
         ids, dists = self._merge_on_device(partials, k_query)
         return ResultsFuture(lambda: self._finalize(ids, dists))
 
     def bf_query(self, query, k_gt: int = 100,
                  measure: DistanceMeasure | None = None) -> Results:
-        """Brute-force ground truth over all shards (ggnn.cu:332-390)."""
+        """Brute-force ground truth over all shards (ggnn.cu:332-390); with
+        one shard per slot each scans on its own device and the results
+        merge on the first slot's device."""
         if self._base is None:
             raise RuntimeError("no base data set")
         measure = DistanceMeasure(measure) if measure is not None else self._measure
-        query = _as_tensor(query, self.device)
+        query = _as_tensor(query)
         if not self._shards:
             # not prepared: one scan over the whole base
-            ids, dists = bruteforce_knn(self._base.to(self.device), query, k_gt,
-                                        measure)
+            ids, dists = bruteforce_knn(self._base.to(self.device),
+                                        query.to(self.device), k_gt, measure)
             return self._finalize(ids, dists)
+
+        def base_of(shard):
+            # a shard that is not resident lends its base for this scan only
+            shard.wait()
+            if shard.base_dev is not None:
+                return shard.base_dev
+            return shard.base_host.to(shard.device)
+
+        if self._one_shard_per_slot():
+            merged = sharded_bf_query([base_of(s) for s in self._shards], query,
+                                      k_gt, measure, device=self.device)
+            return self._merge_results([merged], k_gt)
+        queries = per_device(query, [s.device for s in self._shards])
         n_shard = self._cfg.N
         partials = []
         for shard in self._shards:
-            shard.wait()
-            # a shard that is not resident lends its base for this scan only
-            base = (shard.base_dev if shard.base_dev is not None
-                    else shard.base_host.to(self.device))
-            ids, dists = bruteforce_knn(base, query, min(k_gt, n_shard), measure)
+            ids, dists = bruteforce_knn(base_of(shard), queries[shard.device],
+                                        min(k_gt, n_shard), measure)
             if shard.shard_id:
                 ids = torch.where(ids >= 0, ids + shard.shard_id * n_shard, ids)
             partials.append((ids, dists))
-        return self._finalize(*self._merge_on_device(partials, k_gt))
+        return self._merge_results(partials, k_gt)
 
     # --- result merging (result_merger.cpp:52-148) --------------------------
+
+    def _on_host(self, partials) -> bool:
+        """Whether these partials merge on the host: several slots' shards,
+        not merged across the devices already. Records the route."""
+        if len(self._devices) == 1:
+            self.last_merge_route = "device"
+        else:
+            self.last_merge_route = "devices" if len(partials) == 1 else "host"
+        return self.last_merge_route == "host"
+
+    def _merge_results(self, partials, k: int) -> Results:
+        if self._on_host(partials):
+            return self._finalize_host(*self._merge_on_host(partials, k))
+        return self._finalize(*self._merge_on_device(partials, k))
 
     @staticmethod
     def _merge_on_device(partials, k: int):
@@ -772,12 +943,39 @@ class GGNN:
         reference's ``lax.top_k`` keeps it."""
         if len(partials) == 1:
             return partials[0]
-        ids = torch.cat([p[0] for p in partials], dim=1)
-        dists = torch.cat([p[1] for p in partials], dim=1)
-        dists, order = torch.sort(dists, dim=1, stable=True)
-        return torch.gather(ids, 1, order[:, :k]), dists[:, :k]
+        return merge_over_devices(partials, k)
+
+    @staticmethod
+    def _merge_on_host(partials, k: int):
+        """The host merge of several slots' partials (the reference's
+        ResultMerger): the native k-way merger when it is built, else -- and
+        where it raises -- numpy's stable sort, with a warning. Both keep
+        the device merge's tie order."""
+        ids = np.stack([p[0].cpu().numpy() for p in partials])
+        dists = np.stack([p[1].cpu().numpy() for p in partials])
+        if native_merge.available():
+            try:
+                return native_merge.merge_topk_partials(ids, dists, k)
+            except Exception:
+                logger.warning("native result merger failed; numpy merge instead",
+                               exc_info=True)
+        else:
+            logger.warning("native result merger not built; numpy merge instead")
+        ids = np.concatenate(list(ids), axis=1)
+        dists = np.concatenate(list(dists), axis=1)
+        order = np.argsort(dists, axis=1, kind="stable")[:, :k]
+        return (np.take_along_axis(ids, order, axis=1),
+                np.take_along_axis(dists, order, axis=1))
 
     def _finalize(self, ids, dists) -> Results:
         if self._return_results_on_device:
             return Results(ids, dists)
         return Results(ids.cpu().numpy(), dists.cpu().numpy())
+
+    def _finalize_host(self, ids: np.ndarray, dists: np.ndarray) -> Results:
+        """Host-merged results, uploaded to the first slot's device when
+        results on the device were asked for."""
+        if self._return_results_on_device:
+            return Results(torch.from_numpy(ids).to(self.device),
+                           torch.from_numpy(dists).to(self.device))
+        return Results(ids, dists)

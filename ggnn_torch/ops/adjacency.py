@@ -7,10 +7,11 @@ tensor :func:`adjacency_dot` launches the hand-written Hopper kernel; on a
 CPU tensor it runs :func:`adjacency_dot_plain`, the gather + einsum version
 that is also the kernel's oracle. There is no other route.
 
-The kernel is compiled with ``nvcc`` at first use into ``build/kernels/``
-under the repository root and bound through ctypes (a plain C entry point,
-so the build takes seconds). The build is skipped while the shared library
-is newer than its source.
+The kernel is compiled with ``nvcc`` at first use and bound through ctypes
+(a plain C entry point, so the build takes seconds). The library is named
+by a hash of the source and the nvcc flags, in ``build/kernels/`` under the
+repository root or in ``$GGNN_TORCH_CACHE`` (``ggnn_torch/utils/cache.py``):
+a library built from another source is never loaded.
 """
 
 from __future__ import annotations
@@ -27,31 +28,34 @@ from pathlib import Path
 
 import torch
 
+from ggnn_torch.utils.cache import keyed_library
+
 __all__ = [
     "adjacency_dot",
     "adjacency_dot_plain",
     "build_kernel",
     "kernel_resources",
+    "library_path",
     "launches",
     "launches_nibbles",
     "KERNEL_SOURCE",
 ]
 
 KERNEL_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "adjacency_dot.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_LIB_PATH = _BUILD_DIR / "adjacency_dot.so"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
 # kernel launches made by adjacency_dot (the plain CPU route does not count):
-# all of them, and those in int4 ``nibbles`` mode
+# all of them, and those in int4 ``nibbles`` mode; updated under
+# ``_count_lock`` (build workers launch from several threads)
 launches = 0
 launches_nibbles = 0
 
 _launch_fn = None
 _lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def adjacency_dot_plain(qs: torch.Tensor, anchors: torch.Tensor,
@@ -109,13 +113,20 @@ def _compile(source: Path, target: Path) -> float:
     return time.perf_counter() - t0
 
 
+def library_path(source: Path = KERNEL_SOURCE) -> Path:
+    """The shared library of ``source``: named by the hash of its bytes and
+    the nvcc flags, in the cache directory."""
+    return keyed_library("adjacency_dot", source, _NVCC_FLAGS)
+
+
 def build_kernel() -> float:
-    """Compile the kernel's shared library unless it is newer than its
-    source. Returns the seconds the build took (0.0 when skipped)."""
-    if (_LIB_PATH.is_file()
-            and _LIB_PATH.stat().st_mtime >= KERNEL_SOURCE.stat().st_mtime):
+    """Compile the kernel's shared library unless the library of this
+    source and these flags exists. Returns the seconds the build took (0.0
+    when it was there)."""
+    target = library_path()
+    if target.is_file():
         return 0.0
-    return _compile(KERNEL_SOURCE, _LIB_PATH)
+    return _compile(KERNEL_SOURCE, target)
 
 
 def _bind(path: Path):
@@ -133,7 +144,7 @@ def _load():
     with _lib_lock:
         if _launch_fn is None:
             build_kernel()
-            _launch_fn = _bind(_LIB_PATH)
+            _launch_fn = _bind(library_path())
     return _launch_fn
 
 
@@ -169,11 +180,12 @@ def count_opcodes(sass: str, prefix: str) -> dict:
     return out
 
 
-def kernel_resources(lib_path: Path = _LIB_PATH):
+def kernel_resources(lib_path: Path | None = None):
     """Registers, shared and local (spill) bytes of each kernel in a built
-    library and its count of int -> float conversions (``I2F*``) in the
-    SASS, read with the ``cuobjdump`` beside ``nvcc``; None where that tool
-    is missing."""
+    library (by default this source's) and its count of int -> float
+    conversions (``I2F*``) in the SASS, read with the ``cuobjdump`` beside
+    ``nvcc``; None where that tool is missing."""
+    lib_path = library_path() if lib_path is None else lib_path
     try:
         tool = Path(_nvcc()).parent / "cuobjdump"
     except RuntimeError:
@@ -250,6 +262,7 @@ def adjacency_dot(qs: torch.Tensor, anchors: torch.Tensor,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"adjacency_dot kernel launch failed: CUDA error {err}")
-    launches += 1
-    launches_nibbles += bool(nibbles)
+    with _count_lock:
+        launches += 1
+        launches_nibbles += bool(nibbles)
     return out

@@ -16,7 +16,13 @@ machine without it::
 * The group-2 and int4 fused layouts on one graph, queried on the card and
   on the CPU: ids equal on >= 99% of rows; the int4 queries launch the
   kernel in ``nibbles`` mode.
+* Two slots of one card: two build workers, each launch counted exactly
+  once with the interpreter switching threads every microsecond, and the
+  device merge returning the host merge's ids.
 """
+
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -143,3 +149,41 @@ def test_layout_query_card_matches_cpu(cuda_device, data, built, group, bits):
                              torch.from_numpy(base), 10, 0.5, 24, **kw)
     same = np.mean(np.all(ids.cpu().numpy() == cpu_ids.numpy(), axis=1))
     assert same >= 0.99
+
+
+@pytest.mark.cuda
+def test_two_slots_on_one_card(cuda_device, data):
+    base, query = data
+    adjacency._load()
+    launch, calls, lock = adjacency._launch_fn, [0], threading.Lock()
+
+    def counted(*args):
+        with lock:
+            calls[0] += 1
+        return launch(*args)
+
+    g = GGNN(device=cuda_device)
+    g.set_devices([cuda_device, cuda_device])
+    g.set_base(base)
+    before = adjacency.launches
+    adjacency._launch_fn = counted
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        g.build(k_build=K, tau_build=0.5, refinement_iterations=2)
+    finally:
+        sys.setswitchinterval(interval)
+        adjacency._launch_fn = launch
+    assert g.last_build_stats["num_build_workers"] == 2
+    assert calls[0] > 0 and adjacency.launches - before == calls[0]
+    g.build_fused_index()
+    kw = dict(engine="fused", num_seeds=8, rerank=16, width=32, cap=32,
+              pops_per_iter=4)
+    on_device = g.query(query, 10, 0.5, 24, **kw)
+    assert g.last_merge_route == "devices"
+    g.set_device_merge(False)
+    on_host = g.query(query, 10, 0.5, 24, **kw)
+    assert g.last_merge_route == "host"
+    np.testing.assert_array_equal(on_device.ids, on_host.ids)
+    np.testing.assert_array_equal(on_device.dists, on_host.dists)
+    g.close()

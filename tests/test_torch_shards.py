@@ -14,7 +14,7 @@ JAX package.
   resident run's, for both engines.
 * The rotation stays exact, and loses no counter update, with the
   interpreter switching threads every microsecond.
-* Several devices raise ``NotImplementedError``.
+* A device list's entries are slots, a repeated device too.
 """
 
 import sys
@@ -211,11 +211,19 @@ def test_rotation_with_threads_switching_often():
         g.close()
 
 
-def test_several_devices_raise():
+def test_device_list_entries_are_slots():
+    """Each entry of the device list is a slot, a repeated device too; the
+    shards go to the slots in contiguous blocks. ``set_gpus`` without a
+    card raises the clean "no CUDA device" error of ``GGNN(device="cuda")``."""
     g = GGNN(device="cpu")
-    with pytest.raises(NotImplementedError):
-        g.set_devices(["cpu", "cpu"])
-    with pytest.raises(NotImplementedError):
-        g.set_gpus([0, 1])
-    g.set_devices(["cpu"])  # one device is the port's slice
-    assert g.device == torch.device("cpu")
+    g.set_devices(["cpu", "cpu"])
+    assert g.devices == [torch.device("cpu")] * 2
+    g.set_base(np.zeros((4 * N_SHARD, D), np.float32))
+    g.set_shard_size(N_SHARD)
+    g._prepare(KB)
+    assert [s.slot for s in g._shards] == [0, 0, 1, 1]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            g.set_gpus([0, 1])
+    g.set_devices(["cpu"])
+    assert g.device == torch.device("cpu") and len(g.devices) == 1

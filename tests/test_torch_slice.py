@@ -244,13 +244,15 @@ def test_row_engine_default_and_async(data, port):
     np.testing.assert_array_equal(fut.result().ids, fused.ids)
 
 
-def test_outside_the_slice_raises(data, port):
+def test_device_slots_and_engine_kwarg_checks(data, port):
     _, query, _, _ = data
-    # several devices are the one part of the surface left to port
-    with pytest.raises(NotImplementedError):
-        port.set_devices(["cpu", "cpu"])
-    with pytest.raises(NotImplementedError):
-        port.set_gpus([0, 1])
+    # several devices: two slots of the CPU; CUDA indices need a card
+    g = GGNN(device="cpu")
+    g.set_devices(["cpu", "cpu"])
+    assert g.devices == [torch.device("cpu")] * 2
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            g.set_gpus([0, 1])
     # a kwarg of the other engine is a tuning mistake, as in the reference
     with pytest.raises(ValueError):
         port.query(query[:10], 10, 0.5, 16, engine="fused",
