@@ -27,21 +27,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    cheapest first until c@1 >= 0.90. QPS is timed with CUDA events around
    the queries alone, queries already on the card and results left there.
    The kernel's launch counter must rise during the build and again during
-   the queries. Then one call at the operating point runs under
-   ``torch.profiler``: its host-clock ms, the device's busy ms and the
-   adjacency kernel's launches and ms in it.
+   the queries; every count includes the launches replayed from CUDA
+   graphs (one per captured launch per replay). At the operating point the
+   graph route (the walks' steps replayed as CUDA graphs, the live count read
+   once per replay) must return the eager route's ids and dists bit for
+   bit: the count of differing rows is printed and must be 0, with each
+   route's ms per call. Then one call at the operating point runs under
+   ``torch.profiler``: its host-clock ms, the device's busy ms and share,
+   its kernel count, the adjacency kernel's launches and ms in it, the host
+   syncs per query tile, and the graphs captured with their pools' bytes.
+   Then the tile plan (a batch walks tiles of 8,192 rows, the last padded to
+   a power of two of at least 256): a call of 3,000 queries, whose tile
+   shape no call walked before, with its captures, and the same call
+   again; then the batch sizes ``MIX`` twice through graphs and once
+   eagerly, with each pass's ms and captures.
 5. Row engine on the same graph and queries (``engine="row"``,
    ``pops_per_iter=8``, ``fetch_cap_fraction=0.75``): the (tau, pop budget)
    sweep ``ROW_SWEEP`` cheapest first until c@1 >= 0.90, timed like phase 4
    (3 timed calls after 1 warm-up); the returned
    distances must be the exact ones. Prints the device bytes of the row
    layout (graph + f32 base) beside the fused index's. The kernel must not
-   launch: the row walk gathers f32 rows.
+   launch: the row walk gathers f32 rows. The graph route must equal the
+   eager route at the operating point. Then k_query=6000 (the reference's
+   bound) on the same graph: one fused and one row call for 1,000 queries
+   through graphs (pop budget 2,000; the first call captures, the second is
+   timed), rows sorted without duplicates, c@1/c@10 of the first 10
+   columns, the graphs captured and their pools' bytes.
 6. Layouts on the fused path's graph: ``build_fused_index(group=2)`` and
    ``build_fused_index(bits=4)``, each followed by the fused sweep until
    c@1 >= 0.90; prints each layout's device bytes per point, index seconds
    and kernel launches. The kernel must launch in both, in ``nibbles`` mode
-   (and only so) for int4.
+   (and only so) for int4. Graph route against eager at each layout's
+   operating point, as in phase 4. Then the path's ``GGNN`` is dropped
+   without ``close``: no walk program and no graph pool may be left, and
+   the memory allocated must come back within 256 MiB of where it was
+   before phase 4.
 7. The exact f32-fetch build (``quantized_fetch=False``, the schedule every
    base above 1,048,576 points takes at k=48, D=128) of the same 262,144
    points, then the row sweep on it until c@1 >= 0.90. The kernel must not
@@ -65,7 +85,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    cap is raised to 4: the ids must equal the rotated run's exactly; then
    ``store()``, and a fresh ``GGNN`` through ``load(48)`` and
    ``build_fused_index()`` must reuse all 4 sidecars and return the same
-   ids again.
+   ids again. The walks run through graphs; a shard staged in is copied
+   into the device buffers an evicted shard left, so the graphs keyed on
+   their addresses serve every shard that rotates through them: identical
+   ids here mean no graph read a stale shard. The rotated call at the
+   operating point is timed through both routes in the same run (ids
+   identical), with its captures and stage-ins per call.
 10. Several devices: 524,288 points as 2 shards of 262,144 on two slots of
    the one card (``set_devices(["cuda:0", "cuda:0"])``): a build with one
    worker per slot (``num_build_workers`` must be 2; its wall seconds
@@ -77,14 +102,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    ids, and so does ``query_async`` on either route; the ms per call of
    the device merge (CUDA events) and of the host merge (host clock, the
    partials' copy to the host included) are printed. The kernel must
-   launch in the build and in the queries.
+   launch in the build and in the queries. The two build workers capture
+   their merge walks' graphs on one card at once; each must capture some.
 11. The benchmark CLI: a 65,536-point base and 1,000 queries written as
    fvecs to a temporary directory (read back by the native reader, which
    must be built), then ``python -m ggnn_torch.benchmark
    --shard_size 32768 --fused_group 2 --graph_dir <tmp>`` twice: the first
    run builds and stores, the second loads and reuses the sidecars; both
    must exit 0 and print their c@1 lines.
-12. One JSON line with the kernel's numbers (its bound: the bytes it must
+12. The other measure and dtype: a cosine build of 65,536 points of the
+   same generator with the fused sweep until c@1 >= 0.90 (ground truth and
+   the exact-distance check by cosine), and the generator rounded into a
+   uint8 base (``UCharDataset``, uint8 queries) with the fused and the row
+   sweep; graph route against eager at every operating point (and for the
+   cosine row walk at (0.5, 64)). The kernel must launch in the builds and
+   in the fused queries.
+13. One JSON line with the kernel's numbers (its bound: the bytes it must
    move -- each block a live anchor names read once, the query rows and
    anchors read once, each live output lane written once -- at the H100's
    3.35 TB/s, against 2 flops per code at 67 TFLOP/s f32; the share of it
@@ -97,6 +130,7 @@ before each path runs and read just after it. A failure prints its
 traceback to stdout and the script exits 1 without a result line.
 """
 
+import functools
 import json
 import os
 import shutil
@@ -105,18 +139,23 @@ import sys
 import tempfile
 import time
 import traceback
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from ggnn_torch import GGNN, Evaluator, GraphConfig, store_fvecs
+from ggnn_torch import (DistanceMeasure, Evaluator, GGNN, GraphConfig,
+                        UCharDataset, store_fvecs)
 from ggnn_torch.native import build as native_build
 from ggnn_torch.native import io as native_io
+from ggnn_torch import ggnn as ggnn_mod
 from ggnn_torch.native import merge as native_merge
 from ggnn_torch.ops import adjacency
 from ggnn_torch.parallel import merge_over_devices
 from ggnn_torch.query import fused as fused_mod
+from ggnn_torch.query.ann import ann_query
+from ggnn_torch.utils import graphs
 
 N, NQ, D = 262_144, 10_000, 128
 K_BUILD, TAU_BUILD, K_QUERY = 48, 0.5, 10
@@ -139,6 +178,11 @@ N_DESCENT = 65_536
 N_SHARDED, N_SHARD, MAX_DEVICE_SHARDS = 1_048_576, 262_144, 2
 N_DEVICES, SLOTS = 524_288, 2
 N_CLI, NQ_CLI, CLI_SHARD = 65_536, 1_000, 32_768
+# k_query at the reference's bound: queries, pop budget, fused pops per step
+KQ_MAX, NQ_KQ, KQ_BUDGET, KQ_FUSED_P = 6000, 1_000, 2_000, 32
+N_MEASURES = 65_536  # the cosine build and the uint8 base
+# batch sizes of the tile-plan check, in this order, each a call of its own
+MIX = (1000, 3000, 777, 5000, 10000, 1500, 4096, 2500, 8192, 300)
 # the H100's published peaks (SXM, 700 W): HBM bytes/s and f32 FLOP/s
 HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
 
@@ -254,12 +298,111 @@ def measure_kernel(device, qs, anchors, blocks, nibbles, label):
             "bound_share": bound_ms / ms, "bytes": nbytes}
 
 
+def fused_call(g, query_dev, point, route=None, k=K_QUERY):
+    """One fused query of shard 0 at ``point`` with the smoke's knobs, as
+    ``GGNN.query`` makes it, through ``route`` (None: CUDA graphs on the
+    card; ``graphs.EAGER``: the host-stepped plain version)."""
+    shard = g._shards[0]
+    kw = {n: v for n, v in QKW.items() if n != "engine"}
+    return fused_mod.fused_query(
+        query_dev, shard.fused_index, shard.base_dev, k, point["tau"],
+        point["iters"], g._measure, base_sq=shard.base_sq,
+        pops_per_iter=point["P"], route=route, **kw)
+
+
+def row_call(g, query_dev, point, route=None, k=K_QUERY):
+    """One row-engine query of shard 0 at ``point``, as ``GGNN.query``."""
+    shard = g._shards[0]
+    return ann_query(query_dev, shard.base_dev, shard.graph, g._cfg, k,
+                     point["tau"], point["iters"], g._measure,
+                     base_sq=shard.base_sq, pops_per_iter=ROW_KW["pops_per_iter"],
+                     fetch_cap_fraction=ROW_KW["fetch_cap_fraction"], route=route)
+
+
+def graph_vs_eager(device, label, call, reps=3):
+    """``call(route)`` through CUDA graphs and through the eager loop: ids
+    and dists must be identical, bit for bit. Prints the count of rows
+    that differ (must be 0) and each route's ms per call (CUDA events)."""
+    eager = call(graphs.EAGER)
+    got = call(None)
+    ids_e, d_e = (t.cpu().numpy() for t in eager)
+    ids_g, d_g = (t.cpu().numpy() for t in got)
+    rows = int(np.sum(np.any((ids_e != ids_g) | (d_e != d_g), axis=1)))
+    eager_ms, _ = time_ms(lambda: call(graphs.EAGER), device, reps=reps, warmup=0)
+    graph_ms, _ = time_ms(lambda: call(None), device, reps=reps, warmup=0)
+    print(f"{label}: graph route vs eager route: {rows} of {ids_e.shape[0]} rows "
+          f"differ (ids and dists bit for bit) | ms per call: graphs "
+          f"{graph_ms:.3f}, eager {eager_ms:.3f}", flush=True)
+    if rows:
+        raise AssertionError(f"{label}: the graph route differs from the eager "
+                             f"route in {rows} rows")
+    return {"rows_differing": rows, "graph_ms": graph_ms, "eager_ms": eager_ms}
+
+
+@contextmanager
+def eager_walks():
+    """``GGNN.query``'s walks take the eager route (the plain version)
+    while inside: both routes timed on the one call path."""
+    fused, row = ggnn_mod.fused_query, ggnn_mod.ann_query
+    ggnn_mod.fused_query = functools.partial(fused, route=graphs.EAGER)
+    ggnn_mod.ann_query = functools.partial(row, route=graphs.EAGER)
+    try:
+        yield
+    finally:
+        ggnn_mod.fused_query, ggnn_mod.ann_query = fused, row
+
+
+def batch_mix(device, g, query_dev, point):
+    """The tile plan under changing batch sizes at ``point``: one call of
+    3,000 queries, whose 4,096-row tile no call walked before (its graphs
+    captured in it), and the same call again; then the batch sizes of
+    ``MIX``, one call each, twice through the graph route and once through
+    the eager one. Prints each pass's ms (CUDA events per call), its
+    graphs captured and the tile shapes the mix walks."""
+    kw = dict(QKW, pops_per_iter=point["P"])
+
+    def call(n):
+        return g.query(query_dev[:n], K_QUERY, point["tau"], point["iters"], **kw)
+
+    out = {}
+    for label in ("first_call", "second_call"):
+        captured = graphs.stats()["captures"]
+        ms, _ = time_ms(lambda: call(3000), device, reps=1, warmup=0)
+        out[label] = {"ms": ms, "captures": graphs.stats()["captures"] - captured}
+    for label in ("graphs_pass1", "graphs_pass2", "eager"):
+        captured = graphs.stats()["captures"]
+        with eager_walks() if label == "eager" else nullcontext():
+            ms = [time_ms(lambda: call(n), device, reps=1, warmup=0)[0] for n in MIX]
+        out[label] = {"ms": ms, "total_ms": sum(ms),
+                      "captures": graphs.stats()["captures"] - captured}
+    # the tiles of GGNN.query's default chunk
+    tiles = sorted({t for n in MIX for _, _, t in fused_mod.tile_plan(n, 8192)})
+    out["tiles"] = tiles
+    out["graph_pool_bytes"] = graphs.pool_bytes()
+    print(f"tile plan: 3,000 queries (a 4,096-row tile) first call "
+          f"{out['first_call']['ms']:.3f} ms with {out['first_call']['captures']} "
+          f"captures, again {out['second_call']['ms']:.3f} ms with "
+          f"{out['second_call']['captures']} | batch sizes {list(MIX)} walk tiles "
+          f"{tiles}: graphs pass 1 {out['graphs_pass1']['total_ms']:.3f} ms "
+          f"({out['graphs_pass1']['captures']} captures), pass 2 "
+          f"{out['graphs_pass2']['total_ms']:.3f} ms "
+          f"({out['graphs_pass2']['captures']} captures), eager "
+          f"{out['eager']['total_ms']:.3f} ms | per call (ms): pass 1 "
+          f"{[round(x, 3) for x in out['graphs_pass1']['ms']]}, pass 2 "
+          f"{[round(x, 3) for x in out['graphs_pass2']['ms']]}, eager "
+          f"{[round(x, 3) for x in out['eager']['ms']]} | pools "
+          f"{out['graph_pool_bytes']} B", flush=True)
+    return out
+
+
 def kernel_on_real_anchors(device, g, query_dev, point, label):
     """The kernel measured on the inputs of the third launch (the third walk
     step of the first query tile) of one fused query call at ``point`` (tau,
     pop budget, P): real anchors on the shard's real index, past the first
-    steps, whose anchors are the few shared seeds. Its launches are not the
-    path's: call this after the path's counts are read."""
+    steps, whose anchors are the few shared seeds. The call takes the eager
+    route (a graph replay does not pass through the Python wrapper). Its
+    launches are not the path's: call this after the path's counts are
+    read."""
     calls = []
     launch = fused_mod.adjacency_dot
 
@@ -270,8 +413,7 @@ def kernel_on_real_anchors(device, g, query_dev, point, label):
 
     fused_mod.adjacency_dot = record
     try:
-        g.query(query_dev, K_QUERY, point["tau"], point["iters"],
-                **dict(QKW, pops_per_iter=point["P"]))
+        fused_call(g, query_dev, point, route=graphs.EAGER)
     finally:
         fused_mod.adjacency_dot = launch
     qs, anchors, blocks, nibbles = calls[-1]
@@ -279,23 +421,29 @@ def kernel_on_real_anchors(device, g, query_dev, point, label):
                           f"real anchors ({label})")
 
 
-def profile_call(device, fn, label):
+def profile_call(device, fn, label, tiles=1):
     """One call of ``fn`` (after one warm-up) under ``torch.profiler``: its
     host-clock ms under the profiler, the ms in which the card ran a kernel
-    or a copy (the union of their spans in the trace), and the adjacency
-    kernel's launches and device ms -- what tells a slower call's host from
-    its device. None on the CPU rehearsal, which has no device trace."""
+    or a copy (the union of their spans in the trace), its kernel count, the
+    adjacency kernel's launches and device ms -- what tells a slower call's
+    host from its device -- and its host syncs per query tile (the trace's
+    ``aten::_local_scalar_dense`` events, a tensor read on the host, and
+    the walks' live-count reads), with the graphs captured so far and the
+    bytes of their pools. None on the CPU rehearsal, which has no device
+    trace."""
     if device.type != "cuda":
         return None
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     _sync(device)
+    reads = graphs.stats()["live_reads"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         _sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
+    reads = graphs.stats()["live_reads"] - reads
     with tempfile.TemporaryDirectory(prefix="ggnn_smoke_trace_") as tmp:
         prof.export_chrome_trace(str(Path(tmp) / "trace.json"))
         events = json.loads((Path(tmp) / "trace.json").read_text())["traceEvents"]
@@ -307,13 +455,25 @@ def profile_call(device, fn, label):
         end = max(end, b)
     kernels = [e for e in events if e.get("cat") == "kernel"]
     adj = [e["dur"] for e in kernels if e["name"].startswith("adjacency_dot")]
+    syncs = sum(1 for e in events if e.get("name") == "aten::_local_scalar_dense")
+    st = graphs.stats()
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
            "busy_share": busy_us / 1e3 / wall_ms, "kernels": len(kernels),
-           "adjacency_launches": len(adj), "adjacency_ms": sum(adj) / 1e3}
+           "adjacency_launches": len(adj), "adjacency_ms": sum(adj) / 1e3,
+           "host_syncs_per_tile": syncs / tiles,
+           "live_reads_per_tile": reads / tiles,
+           "graphs_captured": st["captures"], "graphs_cached": st["graphs"],
+           "graph_pool_bytes": graphs.pool_bytes(),
+           "graph_buffer_bytes": st["buffer_bytes"]}
     print(f"profile of one {label} call: {wall_ms:.3f} ms on the host clock "
           f"under the profiler | device busy {out['device_busy_ms']:.3f} ms "
           f"({out['busy_share']:.3f}) in {len(kernels)} kernels | adjacency "
-          f"kernel {len(adj)} launches, {out['adjacency_ms']:.3f} ms", flush=True)
+          f"kernel {len(adj)} launches, {out['adjacency_ms']:.3f} ms | host "
+          f"syncs per tile {out['host_syncs_per_tile']:.2f} (live-count reads "
+          f"{out['live_reads_per_tile']:.2f}) over {tiles} tiles | graphs "
+          f"captured so far {st['captures']}, cached {st['graphs']} in "
+          f"{st['programs']} programs, pools {out['graph_pool_bytes']} B, "
+          f"static buffers {st['buffer_bytes']} B", flush=True)
     return out
 
 
@@ -330,16 +490,24 @@ def _not_launched(count, what):
                              "times; its path runs no kernel")
 
 
-def _check_exact(ids, dists, base, query):
-    """The first query's returned distances are the exact ones."""
+def _check_exact(ids, dists, base, query, measure=DistanceMeasure.Euclidean):
+    """The first query's returned distances are the exact ones (squared L2,
+    or cosine)."""
     row = ids[0][ids[0] >= 0]
-    exact = np.sum((base[row] - query[0]) ** 2, axis=-1)
-    if not np.allclose(dists[0][: len(row)], exact, rtol=1e-4, atol=1e-2):
+    b = base[row].astype(np.float64)
+    q = np.asarray(query[0], dtype=np.float64)
+    if measure == DistanceMeasure.Euclidean:
+        exact = np.sum((b - q) ** 2, axis=-1)
+        tol = dict(rtol=1e-4, atol=1e-2)
+    else:
+        exact = np.abs(1.0 - b @ q / np.sqrt(np.sum(b * b, -1) * np.sum(q * q)))
+        tol = dict(rtol=1e-3, atol=1e-5)
+    if not np.allclose(dists[0][: len(row)], exact, **tol):
         raise AssertionError("query distances are not the exact ones")
 
 
 def sweep(g, query_dev, base, query, evaluator, points, kw, device, label,
-          reps=5, warmup=2):
+          reps=5, warmup=2, measure=DistanceMeasure.Euclidean):
     """Query operating points cheapest first until c@1 >= 0.90; QPS from
     CUDA events around the query calls alone (results left on the card).
     Returns the first point that reached the target."""
@@ -366,7 +534,7 @@ def sweep(g, query_dev, base, query, evaluator, points, kw, device, label,
         if ev.c1 >= TARGET_C1:
             best = {"tau": tau, "iters": iters, "P": call_kw["pops_per_iter"],
                     "qps": qps, "c1": ev.c1, "c10": ev.cKQuery}
-            _check_exact(ids, dists, base, query)
+            _check_exact(ids, dists, base, query, measure)
             break
     g.set_return_results_on_device(False)
     if best is None:
@@ -392,7 +560,7 @@ def build(g, device, label, **kw):
     return build_s
 
 
-def ground_truth(g, base, query):
+def ground_truth(g, base, query, measure=DistanceMeasure.Euclidean):
     t0 = time.perf_counter()
     gt_ids, gt_d = g.bf_query(query, k_gt=100)
     bf_s = time.perf_counter() - t0
@@ -400,7 +568,7 @@ def ground_truth(g, base, query):
         raise AssertionError("brute force returned malformed ground truth")
     print(f"brute force ({query.shape[0]} x {base.shape[0]}, k=100): "
           f"{bf_s:.2f} s", flush=True)
-    return Evaluator(base, query, gt_ids, k_query=K_QUERY), bf_s
+    return Evaluator(base, query, gt_ids, k_query=K_QUERY, measure=measure), bf_s
 
 
 def _nbytes(tensors):
@@ -430,12 +598,21 @@ def main_path(device, n=N, nq=NQ):
     print(f"operating point: {json.dumps(best)} | kernel launches: build "
           f"{launches_build}, queries {launches_total - launches_build}",
           flush=True)
+    print(f"graphs captured by the build: "
+          f"{g.last_build_stats['shards'][0]['graphs_captured']}", flush=True)
+    identity = graph_vs_eager(device, "fused (group 1)",
+                              lambda r: fused_call(g, query_dev, best, r))
     real = kernel_on_real_anchors(device, g, query_dev, best, "group 1")
     profile = profile_call(device, lambda: g.query(
         query_dev, K_QUERY, best["tau"], best["iters"],
-        **dict(QKW, pops_per_iter=best["P"])), "fused query")
+        **dict(QKW, pops_per_iter=best["P"])), "fused query",
+        tiles=-(-nq // 8192))
+    mix = batch_mix(device, g, query_dev, best)
     summary = {"launches": launches_total, "build_s": build_s, "bf_s": bf_s,
-               "real": real, "profile": profile, **best}
+               "real": real, "profile": profile, "graph_vs_eager": identity,
+               "batch_mix": mix,
+               "graphs_captured_build":
+                   g.last_build_stats["shards"][0]["graphs_captured"], **best}
     return summary, {"g": g, "base": base, "query": query,
                      "query_dev": query_dev, "evaluator": evaluator}
 
@@ -459,7 +636,66 @@ def row_path(device, ctx):
                  reps=3, warmup=1)
     _not_launched(adjacency.launches, "the row queries")
     print(f"row operating point: {json.dumps(best)}", flush=True)
-    return {**best, "row_bytes": row_bytes, "fused_bytes": fused_bytes}
+    identity = graph_vs_eager(device, "row", lambda r: row_call(
+        g, ctx["query_dev"], best, r))
+    return {**best, "row_bytes": row_bytes, "fused_bytes": fused_bytes,
+            "graph_vs_eager": identity}
+
+
+def _check_rows(ids, dists, label):
+    """Rows sorted ascending (empty slots last) with no duplicate id."""
+    fin = np.isfinite(dists)
+    with np.errstate(invalid="ignore"):
+        down = (np.diff(dists, axis=1) < 0) & fin[:, 1:]
+    if np.any(fin[:, 1:] & ~fin[:, :-1]) or np.any(down):
+        raise AssertionError(f"{label}: rows not sorted")
+    for r in range(ids.shape[0]):
+        valid = ids[r][ids[r] >= 0]
+        if len(np.unique(valid)) != len(valid):
+            raise AssertionError(f"{label}: duplicate ids in row {r}")
+
+
+def kquery_path(device, ctx):
+    """k_query at the reference's bound of 6000 on the fused path's graph:
+    one fused and one row call for NQ_KQ queries through graphs (the first
+    call of each captures, the second is timed), the rows checked, c@1 and
+    c@10 of their first 10 columns, the graph pools' bytes. Returns the
+    numbers and the kernel's launches in the fused calls."""
+    g, query_dev = ctx["g"], ctx["query_dev"][:NQ_KQ]
+    gt = ctx["evaluator"].gt[:NQ_KQ]
+    evaluator = Evaluator(ctx["base"], ctx["query"][:NQ_KQ], gt, k_query=K_QUERY)
+    out = {}
+    for label, point, call in (
+            ("fused", {"tau": 0.64, "iters": KQ_BUDGET, "P": KQ_FUSED_P},
+             lambda p: g.query(query_dev, KQ_MAX, p["tau"], p["iters"],
+                               engine="fused", pops_per_iter=p["P"])),
+            ("row", {"tau": 0.64, "iters": KQ_BUDGET, "P": ROW_KW["pops_per_iter"]},
+             lambda p: g.query(query_dev, KQ_MAX, p["tau"], p["iters"], **ROW_KW))):
+        adjacency.launches = 0
+        captures = graphs.stats()["captures"]
+        ms, res = time_ms(lambda: call(point), device, reps=1, warmup=1)
+        launches = adjacency.launches
+        ids, dists = res.ids, res.dists
+        if ids.shape != (NQ_KQ, KQ_MAX):
+            raise AssertionError(f"k_query {KQ_MAX} {label}: shape {ids.shape}")
+        _check_rows(ids, dists, f"k_query {KQ_MAX} {label}")
+        ev = evaluator.evaluate_results(ids[:, :K_QUERY])
+        filled = float(np.mean(ids >= 0))
+        st = graphs.stats()
+        out[label] = {"ms": ms, "c1": ev.c1, "c10": ev.cKQuery, "filled": filled,
+                      "launches": launches,
+                      "graphs_captured": st["captures"] - captures,
+                      "graph_pool_bytes": graphs.pool_bytes(),
+                      "graph_buffer_bytes": st["buffer_bytes"]}
+        print(f"k_query {KQ_MAX} {label} (tau 0.64, budget {KQ_BUDGET}, P "
+              f"{point['P']}), {NQ_KQ} queries through graphs: {ms:.3f} ms | "
+              f"c@1 {ev.c1:.4f} c@10 {ev.cKQuery:.4f} of the first 10 | slots "
+              f"filled {filled:.4f} | graphs captured {out[label]['graphs_captured']}"
+              f" | pools {out[label]['graph_pool_bytes']} B, static buffers "
+              f"{st['buffer_bytes']} B | kernel launches {launches}", flush=True)
+    _launched(out["fused"]["launches"], f"the k_query {KQ_MAX} fused call", device)
+    _not_launched(out["row"]["launches"], f"the k_query {KQ_MAX} row call")
+    return out
 
 
 def other_build(device, label, n, nq, start, **build_kw):
@@ -515,10 +751,12 @@ def layouts_path(device, ctx):
         print(f"{label} layout: index {index_s:.2f} s | device bytes "
               f"{per_point:.1f} B/point | operating point {json.dumps(best)} | "
               f"kernel launches {launches} (nibbles {nibbles})", flush=True)
+        identity = graph_vs_eager(device, f"fused ({label})", lambda r: fused_call(
+            g, ctx["query_dev"], best, r))
         real = kernel_on_real_anchors(device, g, ctx["query_dev"], best, label)
         out[label] = {**best, "index_s": index_s, "bytes_per_point": per_point,
                       "launches": launches, "launches_nibbles": nibbles,
-                      "real": real}
+                      "real": real, "graph_vs_eager": identity}
     return out
 
 
@@ -574,12 +812,37 @@ def shards_path(device, n=N_SHARDED, n_shard=N_SHARD, nq=NQ):
 
         kw = dict(QKW, pops_per_iter=best["P"])
         args = (K_QUERY, best["tau"], best["iters"])
-        rotated = g.query(query_dev, *args, **kw).ids
+        # the rotated call through both routes; the graph route's programs
+        # are keyed on the device buffers the shards rotate through
+        routes, ids = {}, {}
+        for route in ("graphs", "eager"):
+            captured = graphs.stats()["captures"]
+            stage_ins = g.tier_stats["stage_ins"]
+            with eager_walks() if route == "eager" else nullcontext():
+                ms, res = time_ms(lambda: g.query(query_dev, *args, **kw), device,
+                                  reps=3, warmup=1)
+            ids[route] = res.ids
+            routes[route] = {
+                "ms": ms, "captures_per_call": (graphs.stats()["captures"]
+                                                - captured) / 4,
+                "stage_ins_per_call": (g.tier_stats["stage_ins"] - stage_ins) / 4}
+        if not np.array_equal(ids["graphs"], ids["eager"]):
+            raise AssertionError("rotated: the graph route's ids differ from the "
+                                 "eager route's")
+        print(f"sharded rotated call at the operating point ({nq} queries, 4 "
+              f"shards through 2 sets of buffers): graphs {routes['graphs']['ms']:.3f} ms "
+              f"({routes['graphs']['captures_per_call']:.2f} captures and "
+              f"{routes['graphs']['stage_ins_per_call']:.1f} stage-ins per call), "
+              f"eager {routes['eager']['ms']:.3f} ms; ids identical", flush=True)
+        rotated = ids["graphs"]
         g.set_max_device_shards(g.num_shards)
         resident = g.query(query_dev, *args, **kw).ids
         if not np.array_equal(rotated, resident):
             raise AssertionError("all-resident ids differ from the rotated run's: "
                                  f"{np.mean(np.any(rotated != resident, 1))} of rows")
+        print(f"sharded: rotated and all-resident ids identical through graphs "
+              f"(a shard staged in is copied into the buffers an evicted one left) "
+              f"| graphs {graphs.stats()}", flush=True)
         g.set_working_directory(work / "graph")
         t0 = time.perf_counter()
         g.store()
@@ -611,7 +874,7 @@ def shards_path(device, n=N_SHARDED, n_shard=N_SHARD, nq=NQ):
     return {**best, "build_s": build_s, "build_s_per_shard": per_shard,
             "index_s": index_s, "bf_s": bf_s, "store_s": store_s,
             "load_s": load_s, "tier_stats": stats, "tier_stats_sweep": in_sweep,
-            "sweep_s": sweep_s,
+            "sweep_s": sweep_s, "rotated_routes": routes,
             "launches_build": launches_build, "launches_query": launches_query}
 
 
@@ -640,6 +903,11 @@ def devices_path(device, n=N_DEVICES, nq=NQ):
     if stats["num_build_workers"] != SLOTS or g.num_shards != SLOTS:
         raise AssertionError(f"{stats['num_build_workers']} build workers for "
                              f"{g.num_shards} shards on {SLOTS} slots")
+    captured = [s["graphs_captured"] for s in stats["shards"]]
+    print(f"devices build: graphs captured by the two workers on one card "
+          f"{captured}", flush=True)
+    if device.type == "cuda" and min(captured) <= 0:
+        raise AssertionError("a build worker captured no graph")
     t0 = time.perf_counter()
     g.build_fused_index(group=1, bits=8)
     _sync(device)
@@ -705,7 +973,8 @@ def devices_path(device, n=N_DEVICES, nq=NQ):
             "num_build_workers": stats["num_build_workers"], "index_s": index_s,
             "bf_s": bf_s, "device_merge_ms": device_merge_ms,
             "host_merge_ms": host_merge_ms, "host_route_ms": host_ms,
-            "launches_build": launches_build, "launches_query": launches_query}
+            "launches_build": launches_build, "launches_query": launches_query,
+            "graphs_captured_build": captured}
 
 
 def cli_path(device, n=N_CLI, nq=NQ_CLI, n_shard=CLI_SHARD):
@@ -757,6 +1026,76 @@ def cli_path(device, n=N_CLI, nq=NQ_CLI, n_shard=CLI_SHARD):
     return out
 
 
+def measures_path(device, n=N_MEASURES, nq=NQ):
+    """The other distance and the other dtype: a cosine build of ``n``
+    points of ``make_dataset(seed=0)`` swept on the fused engine, and the
+    same generator rounded into a uint8 base (``UCharDataset``, uint8
+    queries) swept on the fused and the row engine, each until c@1 >= 0.90
+    and held graph against eager at each operating point. Returns each
+    case's build seconds, points, identity checks and kernel launches."""
+    base, query = make_dataset(n, nq, d=D, seed=0)
+    cos, euc = DistanceMeasure.Cosine, DistanceMeasure.Euclidean
+    cases = (("cosine", base, query, cos),
+             ("uint8", UCharDataset(np.rint(base)), UCharDataset(np.rint(query)),
+              euc))
+    out = {}
+    for label, b, q, measure in cases:
+        b, q = np.asarray(b), np.asarray(q)
+        g = GGNN(device=device)
+        g.set_base(b)
+        adjacency.launches = 0
+        build_s = build(g, device, label, measure=measure)
+        launches_build = adjacency.launches
+        g.build_fused_index()
+        evaluator, _ = ground_truth(g, b, q, measure)
+        query_dev = torch.from_numpy(q).to(device)
+        adjacency.launches = 0
+        res = {"build_s": build_s, "launches_build": launches_build,
+               "graphs_captured_build":
+                   g.last_build_stats["shards"][0]["graphs_captured"]}
+        best = sweep(g, query_dev, b, q, evaluator, SWEEP, QKW, device,
+                     f"{label} fused", reps=3, warmup=1, measure=measure)
+        res["fused"] = {**best, "graph_vs_eager": graph_vs_eager(
+            device, f"{label} fused", lambda r: fused_call(g, query_dev, best, r))}
+        res["launches_queries"] = adjacency.launches
+        if label == "uint8":
+            adjacency.launches = 0
+            best = sweep(g, query_dev, b, q, evaluator, ROW_SWEEP, ROW_KW, device,
+                         f"{label} row", reps=3, warmup=1, measure=measure)
+            _not_launched(adjacency.launches, f"the {label} row queries")
+        else:
+            best = {"tau": 0.5, "iters": 64, "P": ROW_KW["pops_per_iter"]}
+        res["row"] = {**best, "graph_vs_eager": graph_vs_eager(
+            device, f"{label} row", lambda r: row_call(g, query_dev, best, r))}
+        _launched(launches_build, f"the {label} build", device)
+        _launched(res["launches_queries"], f"the {label} fused queries", device)
+        print(f"{label}: {json.dumps(res)}", flush=True)
+        g.close()
+        out[label] = res
+    return out
+
+
+def released_check(device, allocated):
+    """After the fused path's GGNN went out of scope (no ``close``): no
+    walk program is left, its graphs' pools are gone, and the device memory
+    allocated is back near what it was before the path (the cuBLAS
+    workspaces of the walks' streams stay). Prints the numbers."""
+    graphs.synchronize(device)
+    torch.cuda.empty_cache()
+    st = graphs.stats()
+    pools = graphs.pool_bytes()
+    now = torch.cuda.memory_allocated(device)
+    print(f"fused path's GGNN dropped: allocated {now} B (before the path "
+          f"{allocated} B) | programs left {st['programs']}, pools {pools} B",
+          flush=True)
+    if st["programs"] or pools:
+        raise AssertionError("the dropped GGNN's walk programs are still cached")
+    if now - allocated > 256 << 20:
+        raise AssertionError(f"{now - allocated} B still allocated after the "
+                             "fused path's GGNN was dropped")
+    return {"allocated_before": allocated, "allocated_after": now}
+
+
 def _phase(name, t0):
     print(f"[phase] {name}: {time.perf_counter() - t0:.2f} s", flush=True)
     return time.perf_counter()
@@ -794,13 +1133,16 @@ def run(device):
     torch.cuda.empty_cache()
     t0 = _phase("kernel vs plain", t0)
 
+    allocated = torch.cuda.memory_allocated(device)
     summary, ctx = main_path(device)
     t0 = _phase("fused path (build, index, ground truth, sweep)", t0)
     row = row_path(device, ctx)
     t0 = _phase("row engine sweep", t0)
+    kquery = kquery_path(device, ctx)
+    t0 = _phase(f"k_query {KQ_MAX} (fused + row)", t0)
     layouts = layouts_path(device, ctx)
     del ctx
-    torch.cuda.empty_cache()
+    released = released_check(device, allocated)
     t0 = _phase("group-2 and int4 layouts + fused sweeps", t0)
     start = ROW_SWEEP.index((row["tau"], row["iters"]))
     launches, f32 = other_build(device, "f32-fetch", N, NQ, start,
@@ -824,10 +1166,16 @@ def run(device):
                 "sweep, host merge, async)", t0)
     cli = cli_path(device)
     t0 = _phase("benchmark CLI (build + store, load)", t0)
+    measures = measures_path(device)
+    torch.cuda.empty_cache()
+    t0 = _phase("cosine build and uint8 base (builds, sweeps, graph vs eager)", t0)
     print("summary: " + json.dumps({
         "fused": {k: summary[k] for k in ("tau", "iters", "P", "qps", "c1",
                                           "c10", "build_s", "profile")},
-        "row": row,
+        "fused_graph_vs_eager": summary["graph_vs_eager"],
+        "batch_mix": summary["batch_mix"], "released": released,
+        "graphs_captured_build": summary["graphs_captured_build"],
+        "row": row, "kquery": kquery, "measures": measures,
         "layouts": {k: {f: v for f, v in r.items() if f != "real"}
                     for k, r in layouts.items()}, "f32_fetch_build": f32,
         "descent_walk_build": descent, "sharded": sharded, "devices": devices,
@@ -844,7 +1192,12 @@ def run(device):
         "sharded_queries": sharded["launches_query"],
         "devices_build": devices["launches_build"],
         "devices_queries": devices["launches_query"],
-        "row_queries": 0, "f32_fetch_build": 0,
+        "kquery_fused": kquery["fused"]["launches"],
+        "cosine_build": measures["cosine"]["launches_build"],
+        "cosine_queries": measures["cosine"]["launches_queries"],
+        "uint8_build": measures["uint8"]["launches_build"],
+        "uint8_queries": measures["uint8"]["launches_queries"],
+        "row_queries": 0, "f32_fetch_build": 0, "kquery_row": 0,
     }
 
     def numbers(r):

@@ -35,6 +35,7 @@ from ggnn_torch.graph import Graph
 from ggnn_torch.ops.distance import squared_norms
 from ggnn_torch.query.fused import encode_u8, make_adjacency, quantizer_for
 from ggnn_torch.utils.logging import vlog
+from ggnn_torch.utils import graphs
 from ggnn_torch.utils.timing import PhaseTimer
 
 __all__ = ["build_graph", "QUANTIZED_FETCH_MAX_BYTES", "quantized_fetch_fits"]
@@ -243,8 +244,9 @@ def build_graph(
     dense_seed_merge: bool = True,
 ) -> tuple[Graph, dict]:
     """Build one graph shard on ``base``'s device. Returns (graph, build
-    stats with per-phase seconds and the ``quantizer`` (scale, zero) fitted
-    on the base, or None when no quantized walk needed one).
+    stats with per-phase seconds, the CUDA graphs its merge walks captured
+    (``graphs_captured``) and the ``quantizer`` (scale, zero) fitted on the
+    base, or None when no quantized walk needed one).
 
     ``sym_mode``: "bulk" (drop residual links instead of walking; default),
     "hybrid" (bulk proposals + residual walks), "walk" (walk every
@@ -256,6 +258,7 @@ def build_graph(
                         quantized_fetch=quantized_fetch, sym_mode=sym_mode,
                         dense_seed_merge=dense_seed_merge)
     L = cfg.L
+    captured = graphs.thread_captures()
     # graph_construction.cu:128-140
     for layer_top in range(L):
         for layer_btm in range(layer_top, -1, -1):
@@ -272,6 +275,7 @@ def build_graph(
         "phases": dict(ctx.timer.phases),
         "sym": ctx.sym_stats,
         "build_time_s": ctx.timer.total(),
+        "graphs_captured": graphs.thread_captures() - captured,
         "quantizer": None if ctx._codes is None else (ctx._scale, ctx._zero),
     }
     return ctx.to_graph(), stats

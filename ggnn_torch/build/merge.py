@@ -16,7 +16,10 @@ statistics. Two seedings:
 
 A layer with an entry in ``adjs`` is walked through its quantized adjacency
 (the query engine's walk and kernel); one without is walked on exact f32
-rows (``ops/traverse.py``).
+rows (``ops/traverse.py``). On the card both walks replay as CUDA graphs
+(``utils/graphs.py``): one set per chunk shape -- the last chunk and each
+compaction phase have their own -- which the layer's chunks share and
+which are released once the layer is merged.
 
 Every chunk reads the same pre-merge graph and writes a fresh output, the
 equivalent of the reference's double buffer (graph_construction.cu:292-295).
@@ -32,6 +35,7 @@ from ggnn_torch.ops.distance import dist_block
 from ggnn_torch.ops.topk import smallest_k_positions
 from ggnn_torch.ops.traverse import best_first_search, gather_dists, seed_beam
 from ggnn_torch.query.fused import fused_best_first, fused_best_first_compacted
+from ggnn_torch.utils import graphs
 
 __all__ = ["merge_layer"]
 
@@ -204,15 +208,21 @@ def merge_layer(
     tau = torch.tensor(tau_build, dtype=torch.float32, device=dev)
     Ns = cfg.Ns[layer_btm]
     rows, nn1s = [], []
-    for start in range(0, Ns, chunk):
-        n = torch.arange(start, min(start + chunk, Ns), dtype=torch.int32,
-                         device=dev)
-        r, d = _merge_chunk(
-            n, base, base_sq, neighbors, selection, translation, nn1_stats,
-            tau, adjs, reps, cfg=cfg, layer_top=layer_top,
-            layer_btm=layer_btm, measure=DistanceMeasure(measure),
-            pops_per_iter=pops_per_iter, num_seeds=num_seeds,
-        )
-        rows.append(r)
-        nn1s.append(d)
+    try:
+        for start in range(0, Ns, chunk):
+            n = torch.arange(start, min(start + chunk, Ns), dtype=torch.int32,
+                             device=dev)
+            r, d = _merge_chunk(
+                n, base, base_sq, neighbors, selection, translation, nn1_stats,
+                tau, adjs, reps, cfg=cfg, layer_top=layer_top,
+                layer_btm=layer_btm, measure=DistanceMeasure(measure),
+                pops_per_iter=pops_per_iter, num_seeds=num_seeds,
+            )
+            rows.append(r)
+            nn1s.append(d)
+    finally:
+        # the walks' graphs read this pre-merge graph and its adjacency,
+        # which the next merge replaces
+        graphs.drop(*neighbors, *(t for a in adjs or () if a is not None
+                                  for t in a))
     return torch.cat(rows), torch.cat(nn1s)

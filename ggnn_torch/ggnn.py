@@ -72,6 +72,7 @@ from ggnn_torch.parallel.sharded import (
     sharded_fused_query,
     sharded_query,
 )
+from ggnn_torch.utils import graphs
 from ggnn_torch.utils.logging import logger, vlog
 
 __all__ = ["GGNN", "Results", "ResultsFuture"]
@@ -123,6 +124,11 @@ def _as_tensor(data, device=None) -> torch.Tensor:
     return t.contiguous()
 
 
+def _signature(tensors: dict) -> tuple:
+    return tuple((k, tuple(t.shape), t.dtype, str(t.device))
+                 for k, t in tensors.items())
+
+
 def _device(device) -> torch.device:
     """A device the caller named, with its index on CUDA; raises where there
     is no such CUDA device (there is no CPU fallback)."""
@@ -140,8 +146,14 @@ def _device(device) -> torch.device:
 
 
 class _Shard:
-    """One base shard + its graph and fused index in their tiers (the
-    reference's GPUBuffer slot, gpu_instance.cuh:136-178)."""
+    """One base shard + its graph and fused index in their tiers. A shard
+    that rotates keeps the tensors its walks read in *buffers* (the
+    reference's GPUBuffer, gpu_instance.cuh:136-178): device tensors that
+    the next shard staged in with the same shapes overwrites once this one
+    is evicted."""
+
+    # the fused index's tables a walk reads (query/fused.py:_walk)
+    WALKED = ("nbr_ids", "blocks", "nbr_sq", "group_of", "scale", "zero")
 
     def __init__(self, shard_id: int, slot: int, device: torch.device,
                  base_host):
@@ -160,6 +172,7 @@ class _Shard:
         self.spilled_fused = False  # ... with a fused sidecar
         self.spill_dir: Path | None = None
         self._pending = None  # in-flight disk I/O on this shard
+        self.buffers: dict | None = None  # name -> device tensor, see walked()
 
     @property
     def resident(self) -> bool:
@@ -209,13 +222,38 @@ class _Shard:
             total += sum(np.asarray(x).nbytes for x in meta)
         return total
 
+    def walked(self) -> dict:
+        """The device tensors the walks read by address -- their captured
+        graphs are keyed on them (``utils/graphs.py``): the base, its norms,
+        layer 0 of the graph and, when they were assembled from the host
+        meta, the fused index's tables."""
+        out = {"base": self.base_dev, "base_sq": self.base_sq,
+               "nbr0": self.graph.neighbors[0]}
+        if self.fused_index is not None and self.fused_index_host is not None:
+            out.update((k, getattr(self.fused_index, k)) for k in self.WALKED)
+        return out
+
+    def occupy(self, buffers: dict) -> None:
+        """Copy the walked tensors into ``buffers`` (the same names, shapes
+        and dtypes) and read them from there on."""
+        for k, t in self.walked().items():
+            if buffers[k] is not t:
+                buffers[k].copy_(t)
+        self.base_dev, self.base_sq = buffers["base"], buffers["base_sq"]
+        self.graph = self.graph._replace(
+            neighbors=(buffers["nbr0"], *self.graph.neighbors[1:]))
+        if "blocks" in buffers:
+            self.fused_index = self.fused_index._replace(
+                **{k: buffers[k] for k in self.WALKED})
+        self.buffers = buffers
+
     def evict(self):
         """Swap the shard out of device memory, keeping a host copy of the
-        graph and the fused index's meta (gpu_instance.cu:371-420)."""
-        if self.device.type == "cuda":
-            # the tensors may come from a build worker's stream: no stream
-            # may still read them when their memory goes back to its pool
-            torch.cuda.synchronize(self.device)
+        graph and the fused index's meta (gpu_instance.cu:371-420). Returns
+        the buffers it leaves, if any."""
+        # the tensors may come from a build worker's stream: no stream may
+        # still read them when their memory goes back to its pool
+        graphs.synchronize(self.device)
         if self.graph is not None and self.graph_host is None:
             self.graph_host = self.graph.to("cpu")
         if self.fused_index is not None and self.fused_index_host is None:
@@ -224,6 +262,8 @@ class _Shard:
         self.base_dev = None
         self.base_sq = None
         self.fused_index = None
+        buffers, self.buffers = self.buffers, None
+        return buffers
 
 
 class GGNN:
@@ -269,6 +309,8 @@ class GGNN:
         self._base: torch.Tensor | None = None
         self._n_shard = 0
         self._shards: list[_Shard] = []
+        # buffers evicted shards left, for the next shard staged in
+        self._free_buffers: list[dict] = []
         self._cfg: GraphConfig | None = None
         self._measure = DistanceMeasure.Euclidean
         self._build_seed = 1234
@@ -515,6 +557,9 @@ class GGNN:
         budget = self._resident_budget(fused=True)
         for shard in self._shards:
             self._stage_in(shard)
+            # the index is replaced: the shard's buffers are no longer the
+            # tensors it walks, and go with them
+            shard.buffers = None
             cached = shard.fused_index_host
             # validate against a host graph copy only: fingerprinting a
             # device graph would copy its layer 0 to the host just for that
@@ -564,8 +609,12 @@ class GGNN:
         """Finish in-flight disk I/O, stop the I/O threads and remove the
         temporary spill directory (used when no working directory is set);
         the instance is not used afterwards."""
+        self._free_buffers.clear()
         for shard in self._shards:
             shard.wait()
+            # free the walks' graph pools now, not with the tensors
+            graphs.drop(shard.base_dev, shard.base_sq, *(shard.fused_index or ()),
+                        *(shard.graph.neighbors if shard.graph is not None else ()))
         if self._pool is not None:
             self._pool.shutdown(wait=True)
             self._pool = None
@@ -621,24 +670,28 @@ class GGNN:
         """Device -> host RAM on this thread; beyond the CPU memory limit
         the host copy then spills to disk on the I/O pool."""
         t0 = time.perf_counter()
-        shard.evict()
+        buffers = shard.evict()
+        if buffers is not None:
+            self._free_buffers.append(buffers)
         self._count("evictions", time.perf_counter() - t0)
         if self._cpu_memory_limit is not None:
             total = sum(s.host_cache_bytes() for s in self._shards)
             if total > self._cpu_memory_limit:
                 shard._pending = self._io_pool().submit(self._spill_shard, shard)
 
-    def _stage_in(self, shard: _Shard, engine: str | None = None) -> None:
+    def _stage_in(self, shard: _Shard, engine: str | None = None,
+                  rotating: bool = False) -> None:
         """Make a shard device-resident: disk -> host RAM if spilled, then
         host -> device (swapInPart); the fused engine also needs its index
-        re-assembled from the meta. Synchronises the shard's device before
-        and after, so that ``stage_ins_s`` times the stage-in alone."""
+        re-assembled from the meta. Shards that rotate through the devices
+        take buffers (:meth:`_to_buffers`). Synchronises the shard's device
+        before and after, so that ``stage_ins_s`` times the stage-in
+        alone."""
         shard.wait()
         if not (shard.graph is None or shard.base_dev is None
                 or (engine == "fused" and shard.fused_index is None)):
             return
-        if shard.device.type == "cuda":
-            torch.cuda.synchronize(shard.device)
+        graphs.synchronize(shard.device)
         t0 = time.perf_counter()
         if shard.graph is None and shard.graph_host is None and shard.spilled:
             self._unspill_shard(shard)
@@ -646,9 +699,29 @@ class GGNN:
         shard.ensure_graph()
         if engine == "fused":
             shard.ensure_fused_index()
-        if shard.device.type == "cuda":
-            torch.cuda.synchronize(shard.device)
+        if rotating:
+            self._to_buffers(shard)
+        graphs.synchronize(shard.device)
         self._count("stage_ins", time.perf_counter() - t0)
+
+    def _to_buffers(self, shard: _Shard) -> None:
+        """Move a staged shard's walked tensors into the buffers an evicted
+        shard left with the same shapes, or into new ones. The walks'
+        captured graphs, keyed on the buffers' addresses, then serve every
+        shard that rotates through them instead of being captured again per
+        stage-in."""
+        walked = shard.walked()
+        sig = _signature(walked)
+        i = next((i for i, b in enumerate(self._free_buffers)
+                  if _signature(b) == sig), None)
+        if i is not None:
+            buffers = self._free_buffers.pop(i)
+        else:
+            buffers = {k: torch.empty_like(t) for k, t in walked.items()}
+        old = shard.buffers
+        shard.occupy(buffers)
+        if old is not None and old is not buffers:
+            self._free_buffers.append(old)
 
     def store(self) -> None:
         """Write every shard as ``part_<i>.npz`` in the working directory
@@ -782,7 +855,7 @@ class GGNN:
                     self._evict_shard(victim)
                     resident -= 1
                 resident += 1
-            self._stage_in(shard, engine)
+            self._stage_in(shard, engine, rotating=len(order) > budget)
             q = queries[shard.device]
             if engine == "fused":
                 ids, dists = fused_query(
@@ -809,6 +882,7 @@ class GGNN:
                 nxt = order[i + 1]
                 if nxt.spilled and nxt._pending is None:
                     nxt._pending = self._io_pool().submit(self._unspill_shard, nxt)
+        self._free_buffers.clear()
         # merge in shard order whichever way the sweep went, so that ties
         # break alike in rotated and resident runs
         return [(ids, dists) for _, ids, dists in sorted(partials,

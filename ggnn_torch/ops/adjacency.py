@@ -28,6 +28,7 @@ from pathlib import Path
 
 import torch
 
+from ggnn_torch.utils import graphs
 from ggnn_torch.utils.cache import keyed_library
 
 __all__ = [
@@ -49,7 +50,9 @@ _NVCC_FLAGS = (
 
 # kernel launches made by adjacency_dot (the plain CPU route does not count):
 # all of them, and those in int4 ``nibbles`` mode; updated under
-# ``_count_lock`` (build workers launch from several threads)
+# ``_count_lock`` (build workers launch from several threads). A launch
+# captured into a CUDA graph counts once per replay of that graph
+# (``graphs.count_launch``), not at its capture.
 launches = 0
 launches_nibbles = 0
 
@@ -240,7 +243,6 @@ def adjacency_dot(qs: torch.Tensor, anchors: torch.Tensor,
     version; CUDA tensors launch the kernel, which needs contiguous inputs,
     ``D % 16 == 0`` and 16-byte aligned ``qs`` and ``blocks``.
     """
-    global launches, launches_nibbles
     _check(qs, anchors, blocks)
     dev = qs.device
     if dev.type == "cpu":
@@ -262,7 +264,12 @@ def adjacency_dot(qs: torch.Tensor, anchors: torch.Tensor,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"adjacency_dot kernel launch failed: CUDA error {err}")
+    graphs.count_launch(_count, bool(nibbles))
+    return out
+
+
+def _count(nibbles: bool) -> None:
+    global launches, launches_nibbles
     with _count_lock:
         launches += 1
-        launches_nibbles += bool(nibbles)
-    return out
+        launches_nibbles += nibbles

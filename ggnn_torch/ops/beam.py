@@ -35,8 +35,11 @@ from typing import NamedTuple
 
 import torch
 
+from ggnn_torch.config import DistanceMeasure
+
 __all__ = [
     "BeamState",
+    "Slack",
     "beam_init",
     "beam_dedup_mask",
     "beam_compact_candidates",
@@ -79,6 +82,24 @@ class BeamState(NamedTuple):
     def select(self, rows: torch.Tensor) -> "BeamState":
         """The sub-beam of the given rows."""
         return BeamState(*(t[rows] for t in self))
+
+
+class Slack(NamedTuple):
+    """The query walk's dynamic slack (query_layer.cu:48-63): ``xi0`` from
+    the max 1-NN distance, tightened before each pop by the current best
+    distance -- ``min(xi0, d[0] * tau^2)`` for squared Euclidean distances,
+    ``min(xi0, d[0] * tau)`` for cosine. Called on a beam it gives the new
+    ``xi``. Its tensors are data, not a closure, so that a captured walk
+    reads them from its own buffers."""
+
+    xi0: torch.Tensor  # [] f32
+    tau: torch.Tensor  # [] f32
+    measure: DistanceMeasure
+
+    def __call__(self, state: "BeamState") -> torch.Tensor:
+        if self.measure == DistanceMeasure.Euclidean:
+            return torch.minimum(self.xi0, state.d[:, 0] * self.tau * self.tau)
+        return torch.minimum(self.xi0, state.d[:, 0] * self.tau)
 
 
 def beam_init(

@@ -6,26 +6,29 @@ Replacement for the reference's per-block traversal loops
 per row from the flagged beam, gathers their neighbour rows, dedups candidate
 ids, gathers the surviving candidates' f32 vectors, computes their distances
 to the per-row query, and sorted-merges the admitted candidates back into the
-beam. Rows converge independently via masks; the loop runs on the host and
-ends once every row is done (one ``bool(active.any())`` sync per step) or at
-the ``max_iterations`` pop budget.
+beam. Rows converge independently via masks; the loop ends once every row
+is done or at the ``max_iterations`` pop budget. On the card the capped
+steps replay as CUDA graphs and the host reads the live count once per
+replay (``ggnn_torch/utils/graphs.py``, the counterpart of the JAX
+package's ``lax.while_loop``); the eager loop, one read per step, is the
+CPU's and the plain version.
 """
 
 from __future__ import annotations
-
-from typing import Callable
 
 import torch
 
 from ggnn_torch.config import DistanceMeasure
 from ggnn_torch.ops.beam import (
     BeamState,
+    Slack,
     beam_compact_candidates,
     beam_dedup_mask,
     beam_insert,
     beam_pop,
 )
 from ggnn_torch.ops.distance import dist_gathered
+from ggnn_torch.utils import graphs
 
 __all__ = ["gather_dists", "seed_beam", "best_first_search", "beam_active"]
 
@@ -89,10 +92,12 @@ def best_first_search(
     measure: DistanceMeasure,
     max_iterations: int,
     k_best: int,
-    dynamic_xi: Callable[[BeamState], torch.Tensor] | None = None,
+    dynamic_xi: Slack | None = None,
     pops_per_iter: int = 1,
     fetch_cap_fraction: float = 0.5,
     warm: bool = False,
+    *,
+    route: graphs.Route | None = None,
 ) -> BeamState:
     """Run the best-first expansion loop until convergence.
 
@@ -117,6 +122,8 @@ def best_first_search(
         run uncapped: with an empty beam nearly every candidate survives.
       warm: set when resuming an already-expanded beam (skips the uncapped
         first expansions).
+      route: how the capped loop runs (:mod:`ggnn_torch.utils.graphs`; by
+        default graphs on the card, the eager loop on the CPU).
     """
     K = nbr_table.shape[-1]
     P = max(1, pops_per_iter)
@@ -125,31 +132,38 @@ def best_first_search(
         cap = P * K
     else:
         cap = min(P * K, max(K, int(P * K * fetch_cap_fraction + 7) // 8 * 8))
+    route = graphs.resolve(route, q_vecs.device)
+    consts = (q_vecs, q_sq)
+    if dynamic_xi is not None:
+        consts += (dynamic_xi.xi0, dynamic_xi.tau)
 
-    def step(st, cap_now):
+    def step(st, c, cap_now=cap):
         if dynamic_xi is not None:
-            st = st._replace(xi=dynamic_xi(st))
+            st = st._replace(xi=Slack(c[2], c[3], dynamic_xi.measure)(st))
         anchors, active, st = beam_pop(st, P, k_best)  # [B, P]
         B = anchors.shape[0]
         nbrs = nbr_table[anchors.clamp_min(0).long()].reshape(B, P * K)
-        valid = (anchors != -1).repeat_interleave(K, dim=-1)
+        valid = (anchors != -1)[:, :, None].expand(B, P, K).reshape(B, P * K)
         # dedup on ids BEFORE fetching vectors, then compact the survivors
         ok = beam_dedup_mask(st, nbrs, valid)
         cand = beam_compact_candidates(nbrs, ok, cap_now)
-        d, _ = gather_dists(q_vecs, q_sq, cand, base, base_sq, translation,
+        d, _ = gather_dists(c[0], c[1], cand, base, base_sq, translation,
                             measure)
         st = beam_insert(st, cand, d, row_mask=active,
                          criteria=st.criteria(k_best))
         return st, active
 
     if cap < P * K and not warm:
-        state, _ = step(state, P * K)
-        state, _ = step(state, P * K)
+        state, _ = step(state, consts, P * K)
+        state, _ = step(state, consts, P * K)
         steps = max(0, steps - 2)
-    for _ in range(steps):
-        state, active = step(state, cap)
-        if not bool(active.any()):
-            break
+    B = q_vecs.shape[0]
+    name = ("row", int(measure), k_best, P, K, cap, dynamic_xi is not None)
+    state, *_ = graphs.run_steps(
+        step, state, consts, torch.ones((B,), dtype=torch.bool,
+                                        device=q_vecs.device),
+        it=0, steps=steps, live_n=B, floor=0, route=route, name=name,
+        reads=(nbr_table, base, base_sq, translation))
     return state
 
 

@@ -5,10 +5,12 @@ The reference runs one ``shard_map`` program over a device mesh: every chip
 walks its own shard and the per-chip top-k merges on the device by an
 ``all_gather`` and a ``top_k`` (``_merge_over_ici``). Here each shard's
 walk runs on its own device, one thread per device -- the walk syncs the
-host once per step, so one thread dispatching to every device in turn
-would serialise them; shards that share a device walk one after another
-on its thread, since a second thread there only contends with the first
-for the interpreter lock -- and the partials are copied to one device (the
+host once per replay of its CUDA graphs, so one thread dispatching to
+every device in turn would serialise them; shards that share a device walk
+one after another on its thread, since a second thread there only contends
+with the first for the interpreter lock. A thread captures its walks'
+graphs on a side stream of its own (``ggnn_torch/utils/graphs.py``) -- and
+the partials are copied to one device (the
 first shard's unless given) and merged there by :func:`merge_over_devices`:
 ids offset by ``shard_index * n_shard``, concatenated in shard order, then
 a stable sort, so that among equal distances the lower shard goes first,

@@ -21,35 +21,33 @@ import torch
 
 from ggnn_torch.config import DistanceMeasure, GraphConfig
 from ggnn_torch.graph import Graph
-from ggnn_torch.ops.beam import BeamState, beam_init, beam_insert
+from ggnn_torch.ops.beam import BeamState, Slack, beam_init, beam_insert
 from ggnn_torch.ops.distance import dist_block, squared_norms
 from ggnn_torch.ops.traverse import beam_active, best_first_search
+from ggnn_torch.query.fused import pad_rows, tile_plan
 
 __all__ = ["ann_query"]
 
 
 def _dynamic_xi(nn1_stats, tau_query, measure):
     """Initial slack + per-step tightening (query_layer.cu:48-63): from the
-    *max* 1-NN distance, clamped by the current best distance."""
+    *max* 1-NN distance, clamped by the current best distance. Returns
+    (xi0, the :class:`Slack` that tightens it)."""
     if measure == DistanceMeasure.Euclidean:
         xi0 = (nn1_stats[1] * nn1_stats[1]) * tau_query * tau_query
-
-        def dyn(st):
-            return torch.minimum(xi0, st.d[:, 0] * tau_query * tau_query)
     else:
         xi0 = nn1_stats[1] * tau_query
-
-        def dyn(st):
-            return torch.minimum(xi0, st.d[:, 0] * tau_query)
-    return xi0, dyn
+    tau = torch.as_tensor(tau_query, dtype=torch.float32, device=xi0.device)
+    return xi0, Slack(xi0, tau, DistanceMeasure(measure))
 
 
 def _query_cold(q_vecs, nbr0, starting_points, base, base_sq, nn1_stats,
                 tau_query, *, width: int, vis_size: int, k_query: int,
                 measure: DistanceMeasure, budget: int, pops_per_iter: int,
-                fetch_cap_fraction: float):
+                fetch_cap_fraction: float, route=None, rows=None):
     """Seed from the starting points and run ``budget`` pops. Returns the
-    beam and which rows would still pop."""
+    beam and which rows would still pop. Only the first ``rows`` rows (all
+    by default) are seeded; the rest pad the tile and never pop."""
     B = q_vecs.shape[0]
     q_vecs = q_vecs.to(torch.float32)
     q_sq = torch.sum(q_vecs * q_vecs, dim=-1)
@@ -61,19 +59,21 @@ def _query_cold(q_vecs, nbr0, starting_points, base, base_sq, nn1_stats,
     seed_d = dist_block(q_vecs, base[sp], measure, q_sq=q_sq, c_sq=base_sq[sp])
     seed_ids = starting_points.to(torch.int32)[None, :].expand(B, -1)
     no_crit = torch.full((B,), float("inf"), device=q_vecs.device)
-    state = beam_insert(state, seed_ids, seed_d, criteria=no_crit)
+    real = (None if rows is None or rows == B
+            else torch.arange(B, device=q_vecs.device) < rows)
+    state = beam_insert(state, seed_ids, seed_d, real, criteria=no_crit)
 
     state = best_first_search(
         state, q_vecs, q_sq, nbr0, base, base_sq, None, measure, budget,
         k_best=k_query, dynamic_xi=dyn, pops_per_iter=pops_per_iter,
-        fetch_cap_fraction=fetch_cap_fraction,
+        fetch_cap_fraction=fetch_cap_fraction, route=route,
     )
     return state, beam_active(state, k_query)
 
 
 def _query_warm(state, q_vecs, nbr0, base, base_sq, nn1_stats, tau_query, *,
                 k_query: int, measure: DistanceMeasure, budget: int,
-                pops_per_iter: int, fetch_cap_fraction: float):
+                pops_per_iter: int, fetch_cap_fraction: float, route=None):
     """Resume an existing beam for the remaining pop budget."""
     q_vecs = q_vecs.to(torch.float32)
     q_sq = torch.sum(q_vecs * q_vecs, dim=-1)
@@ -81,7 +81,7 @@ def _query_warm(state, q_vecs, nbr0, base, base_sq, nn1_stats, tau_query, *,
     return best_first_search(
         state, q_vecs, q_sq, nbr0, base, base_sq, None, measure, budget,
         k_best=k_query, dynamic_xi=dyn, pops_per_iter=pops_per_iter,
-        fetch_cap_fraction=fetch_cap_fraction, warm=True,
+        fetch_cap_fraction=fetch_cap_fraction, warm=True, route=route,
     )
 
 
@@ -101,6 +101,7 @@ def ann_query(
     pops_per_iter: int = 8,
     fetch_cap_fraction: float = 0.75,
     two_phase: bool = False,
+    route=None,
 ):
     """Query one graph shard.
 
@@ -113,7 +114,11 @@ def ann_query(
     order exactly. ``fetch_cap_fraction`` bounds each step's vector gather
     after id-dedup (ops/traverse.py). ``two_phase`` compacts converged rows
     out of the sweep after a quarter of the budget (only for Q >= 2048 and a
-    budget of at least 8 steps). Queries run in tiles of ``chunk`` rows.
+    budget of at least 8 steps). Queries run in tiles of ``chunk`` rows, the
+    last one padded (``query/fused.py:tile_plan``).
+    ``route``: how the walk's loop runs (:mod:`ggnn_torch.utils.graphs`):
+    by default as CUDA graphs on the card and eagerly on the CPU;
+    ``graphs.EAGER`` is the plain version.
     """
     measure = DistanceMeasure(measure)
     width, vis_size = GraphConfig.query_beam_geometry(KQuery, max_iterations)
@@ -137,16 +142,17 @@ def ann_query(
         t1 = max(4 * P, (max_iterations // 4 // P) * P)
     t2 = max_iterations - t1
     walk = dict(k_query=KQuery, measure=measure, pops_per_iter=P,
-                fetch_cap_fraction=fetch_cap_fraction)
+                fetch_cap_fraction=fetch_cap_fraction, route=route)
 
     states, actives = [], []
-    for lo in range(0, Q, chunk):
+    for lo, rows, tile in tile_plan(Q, chunk, dev):
         st, act = _query_cold(
-            query[lo : lo + chunk], nbr0, starting_points, base, base_sq,
-            nn1_stats, tau, width=width, vis_size=vis_size, budget=t1, **walk,
+            pad_rows(query[lo : lo + rows], tile), nbr0, starting_points, base,
+            base_sq, nn1_stats, tau, width=width, vis_size=vis_size, budget=t1,
+            rows=rows, **walk,
         )
-        states.append(st)
-        actives.append(act)
+        states.append(st.select(slice(0, rows)))
+        actives.append(act[:rows])
     state = BeamState(*(torch.cat(xs) for xs in zip(*states)))
     ids, dists = state.best(KQuery)
     if not (use_two_phase and t2 > 0):

@@ -14,7 +14,10 @@ The engine restructures the *memory layout*, not the search semantics:
     (query_kernels.cu:149 seeds from translation[L-1]);
   * the best-first walk is the flagged-beam traversal (pop -> expand ->
     filter -> dedup -> insert under ``best + xi``), with the reference's
-    dynamic slack tightening (query_layer.cu:58-63);
+    dynamic slack tightening (query_layer.cu:58-63); on the card its steps
+    replay as CUDA graphs, the host reading the live-row count once per
+    replay (``utils/graphs.py``, the JAX package's ``jax.jit`` +
+    ``lax.while_loop``);
   * a final exact re-rank gathers f32 rows for only the surviving top
     candidates.
 
@@ -47,6 +50,7 @@ from ggnn_torch.graph import Graph
 from ggnn_torch.ops.adjacency import adjacency_dot
 from ggnn_torch.ops.beam import (
     BeamState,
+    Slack,
     beam_dedup_mask,
     beam_init,
     beam_insert,
@@ -54,6 +58,7 @@ from ggnn_torch.ops.beam import (
 )
 from ggnn_torch.ops.distance import dist_block, finish, squared_norms
 from ggnn_torch.ops.topk import smallest_k_positions, sort_by_dist
+from ggnn_torch.utils import graphs
 
 __all__ = [
     "AdjacencyTables",
@@ -72,7 +77,9 @@ __all__ = [
     "make_adjacency",
     "match_groups",
     "meta_of",
+    "pad_rows",
     "save_fused_index",
+    "tile_plan",
 ]
 
 EMPTY_ID = -1
@@ -487,14 +494,16 @@ def load_fused_index(path) -> FusedIndexMeta:
         return FusedIndexMeta(**vals)
 
 
-def _code_dists(q_vecs, q_sq, anchors, index, measure):
+def _code_dists(q_vecs, q_sq, anchors, index, measure, zdot=None):
     """Distances from each row's query to its anchors' inline neighbours.
 
     anchors: [B, P] i32 (-1 = empty). Returns (ids [B, P*Kc], d [B, P*Kc]),
     Kc = index.cand_per_fetch. One contiguous block fetch per anchor's
     *group* -- THE hot memory access, run by the kernel on the card; anchors
     of a row that share a group collapse to one fetch (the later ones become
-    empty, -1, blocks, whose lanes the kernel leaves unwritten).
+    empty, -1, blocks, whose lanes the kernel leaves unwritten). ``zdot``:
+    the rows' ``q . zero`` [B], computed here when not given (a walk
+    computes it once per tile, :func:`_zero_dots`).
     """
     B, P = anchors.shape
     Kc = index.cand_per_fetch
@@ -518,13 +527,22 @@ def _code_dists(q_vecs, q_sq, anchors, index, measure):
     qs = q_vecs * index.scale[None, :]
     nibbles = index.blocks.shape[1] != Kc  # int4: two neighbours per row
     dot = adjacency_dot(qs, blk, index.blocks, nibbles=nibbles).reshape(B, P * Kc)
-    dot = dot + (q_vecs @ index.zero)[:, None]
+    if zdot is None:
+        zdot = _zero_dots(q_vecs, index)
+    dot = dot + zdot[:, None]
     d = finish(dot, q_sq[:, None], sq, measure)
     bad = (ids == EMPTY_ID) | ~torch.isfinite(sq)
     return ids, torch.where(bad, EMPTY_DIST, d)
 
 
-def _fused_step(st: BeamState, q_vecs, q_sq, index, measure, *, k_best, P, cap):
+def _zero_dots(q_vecs, index):
+    """``q . zero`` of each query row: the dequantization offset's share of
+    every dot product, one matrix-vector product per tile."""
+    return q_vecs @ index.zero
+
+
+def _fused_step(st: BeamState, q_vecs, q_sq, zdot, index, measure, *, k_best,
+                P, cap):
     """One pop->fetch->filter->dedup->insert step of the quantized-adjacency
     walk (shared by the query engine and the construction merge).
 
@@ -532,7 +550,7 @@ def _fused_step(st: BeamState, q_vecs, q_sq, index, measure, *, k_best, P, cap):
     admission criterion filters BEFORE the dedup/merge: keep only the best
     ``cap`` candidates below best+xi, sorted."""
     anchors, active, st = beam_pop(st, P, k_best)
-    ids, d = _code_dists(q_vecs, q_sq, anchors, index, measure)
+    ids, d = _code_dists(q_vecs, q_sq, anchors, index, measure, zdot)
     crit = st.criteria(k_best)
     d = torch.where((ids != EMPTY_ID) & (d < crit[:, None]), d, EMPTY_DIST)
     ids = torch.where(torch.isfinite(d), ids, EMPTY_ID)
@@ -551,26 +569,49 @@ def _default_cap(P: int, index) -> int:
     return max(64, (P * index.cand_per_fetch) // 4)
 
 
+def _walk(index, measure, *, k_best: int, P: int, cap: int, slack=None):
+    """The walk's step over ``consts = (q, q_sq, q . zero[, xi0, tau])`` with
+    the cache name and the tensors it reads, for :func:`graphs.run_steps`:
+    the counterpart of the JAX package's ``body`` / ``cond`` pair."""
+
+    def step(st, c):
+        if slack is not None:
+            st = st._replace(xi=Slack(c[3], c[4], slack.measure)(st))
+        return _fused_step(st, c[0], c[1], c[2], index, measure,
+                           k_best=k_best, P=P, cap=cap)
+
+    layout = (index.cand_per_fetch, tuple(index.blocks.shape[1:]),
+              getattr(index, "group", 1))
+    name = ("fused", int(measure), k_best, P, cap, slack is not None, layout)
+    reads = (index.blocks, index.nbr_ids, index.nbr_sq, index.scale, index.zero,
+             getattr(index, "group_of", None))
+    return step, name, reads
+
+
 def fused_best_first(state, q_vecs, q_sq, index, measure, max_iterations: int,
-                     k_best: int, pops_per_iter: int = 8, cap: int | None = None):
+                     k_best: int, pops_per_iter: int = 8, cap: int | None = None,
+                     *, route: graphs.Route | None = None):
     """Best-first expansion over inline-code adjacency until convergence or
-    the ``max_iterations`` pop budget; returns the final beam."""
+    the ``max_iterations`` pop budget; returns the final beam. ``route``:
+    how the loop runs (:mod:`ggnn_torch.utils.graphs`; by default graphs
+    on the card, the eager loop on the CPU)."""
     P = max(1, pops_per_iter)
     cap = _default_cap(P, index) if cap is None else cap
-    steps = -(-max_iterations // P)
-    for _ in range(steps):
-        state, active = _fused_step(
-            state, q_vecs, q_sq, index, measure, k_best=k_best, P=P, cap=cap
-        )
-        if not bool(active.any()):
-            break
+    step, name, reads = _walk(index, measure, k_best=k_best, P=P, cap=cap)
+    B = q_vecs.shape[0]
+    live = torch.ones((B,), dtype=torch.bool, device=q_vecs.device)
+    state, *_ = graphs.run_steps(
+        step, state, (q_vecs, q_sq, _zero_dots(q_vecs, index)), live, it=0,
+        steps=-(-max_iterations // P), live_n=B, floor=0,
+        route=graphs.resolve(route, q_vecs.device), name=name, reads=reads)
     return state
 
 
 def fused_best_first_compacted(state, q_vecs, q_sq, index, measure,
                                max_iterations: int, k_best: int,
                                pops_per_iter: int = 8, cap: int | None = None,
-                               compact_levels: int = 3):
+                               compact_levels: int = 3, *,
+                               route: graphs.Route | None = None):
     """:func:`fused_best_first` with converged-row compaction; returns the
     final ``k_best`` beam columns (ids, dists) per row. Used by the
     construction merge, whose rows run to convergence."""
@@ -579,14 +620,16 @@ def fused_best_first_compacted(state, q_vecs, q_sq, index, measure,
     return _best_first_phases(
         state, q_vecs, q_sq, index, measure,
         steps=-(-max_iterations // P), k_best=k_best, P=P, cap=cap,
-        k_out=k_best, compact_levels=compact_levels, want_d=True,
+        k_out=k_best, compact_levels=compact_levels, want_d=True, route=route,
     )
 
 
 def _best_first_phases(state, q_vecs, q_sq, index, measure, *, steps: int,
                        k_best: int, P: int, cap: int, k_out: int,
-                       compact_levels: int, xi_update=None,
-                       want_d: bool = False, min_rows: int = 256):
+                       compact_levels: int, slack: Slack | None = None,
+                       want_d: bool = False, min_rows: int = 256,
+                       route: graphs.Route | None = None,
+                       live_rows: int | None = None):
     """The best-first sweep as PHASES of halving row counts.
 
     Rows walk independently, so once enough rows of the lock-step tile have
@@ -594,22 +637,33 @@ def _best_first_phases(state, q_vecs, q_sq, index, measure, *, steps: int,
     stepping. Every live row still receives its full pop budget, so results
     are identical to the single-phase sweep -- but converged rows stop paying
     the per-step cost (the reference's free per-block exit,
-    query_layer.cu:57-79). Each step tests the live count on the host: one
-    device sync per step.
+    query_layer.cu:57-79). A phase is the JAX package's ``run_phase``: on
+    the card its steps replay as CUDA graphs and the host reads the live
+    count once per replay (``graphs.run_steps``); a row that converged
+    inside a replay keeps its beam through the replay's remaining steps, so
+    the results are those of the per-step loop. ``slack``: the query's
+    dynamic slack, applied before each pop. ``live_rows``: only the first
+    that many rows walk; the rest pad the tile and start dead.
 
     Returns the first ``k_out`` beam columns per original row:
     (ids [B, k_out], dists [B, k_out] or None if not ``want_d``).
     """
     B = q_vecs.shape[0]
     dev = q_vecs.device
+    route = graphs.resolve(route, dev)
     caps = [B]
     for _ in range(max(0, compact_levels)):
         if caps[-1] // 2 >= min_rows:
             caps.append(caps[-1] // 2)
+    step, name, reads = _walk(index, measure, k_best=k_best, P=P, cap=cap,
+                              slack=slack)
+    scalars = () if slack is None else (slack.xi0, slack.tau)
 
-    live = torch.ones((B,), dtype=torch.bool, device=dev)
+    live_n = B if live_rows is None else live_rows
+    live = torch.arange(B, device=dev) < live_n
     it = 0
-    st, q, qs = state, q_vecs, q_sq
+    # per-row constants, selected with the rows at each compaction
+    st, rows_c = state, (q_vecs, q_sq, _zero_dots(q_vecs, index))
     idx = torch.arange(B, device=dev)  # original row of each tile row
     out_i = st.i[:, :k_out].clone()
     out_d = st.d[:, :k_out].clone() if want_d else None
@@ -618,18 +672,15 @@ def _best_first_phases(state, q_vecs, q_sq, index, measure, *, steps: int,
         if pi:
             # stable sort brings live rows to the front in original order;
             # the previous phase exited with <= ``rows`` live rows (or out of
-            # budget, and then the loop below runs zero steps)
+            # budget, and then the phase below runs zero steps)
             order = torch.argsort((~live).to(torch.int8), stable=True)
             sel = order[:rows]
             st = st.select(sel)
-            q, qs, live, idx = q[sel], qs[sel], live[sel], idx[sel]
-        while it < steps and int(live.sum()) > next_min:
-            if xi_update is not None:
-                st = st._replace(xi=xi_update(st))
-            st, live = _fused_step(
-                st, q, qs, index, measure, k_best=k_best, P=P, cap=cap
-            )
-            it += 1
+            rows_c = tuple(t[sel] for t in rows_c)
+            live, idx = live[sel], idx[sel]
+        st, live, it, live_n = graphs.run_steps(
+            step, st, rows_c + scalars, live, it=it, steps=steps,
+            live_n=live_n, floor=next_min, route=route, name=name, reads=reads)
         out_i[idx] = st.i[:, :k_out]
         if want_d:
             out_d[idx] = st.d[:, :k_out]
@@ -641,7 +692,11 @@ def _fused_query_tile(q_vecs, index: FusedIndex, base, base_sq, tau, *,
                       width: int, vis_size: int, k_query: int,
                       measure: DistanceMeasure, max_iterations: int,
                       pops_per_iter: int, num_seeds: int, rerank: int,
-                      cap: int, compact_levels: int):
+                      cap: int, compact_levels: int, route=None,
+                      rows: int | None = None):
+    """One tile's seed, walk and re-rank; only its first ``rows`` rows are
+    queries (all by default), the rest pad it to its planned size: they
+    are not seeded, so their walk is dead from the first pop."""
     B = q_vecs.shape[0]
     P = pops_per_iter
     q_vecs = q_vecs.to(torch.float32)
@@ -652,14 +707,9 @@ def _fused_query_tile(q_vecs, index: FusedIndex, base, base_sq, tau, *,
     nn1 = index.nn1_stats
     if measure == DistanceMeasure.Euclidean:
         xi0 = (nn1[1] * nn1[1]) * tau * tau
-
-        def dyn(st):
-            return torch.minimum(xi0, st.d[:, 0] * tau * tau)
     else:
         xi0 = nn1[1] * tau
-
-        def dyn(st):
-            return torch.minimum(xi0, st.d[:, 0] * tau)
+    slack = Slack(xi0, tau, measure)
 
     state = beam_init(B, width, xi0, vis_size, device=q_vecs.device)
 
@@ -669,13 +719,16 @@ def _fused_query_tile(q_vecs, index: FusedIndex, base, base_sq, tau, *,
     seed_d, pos = smallest_k_positions(seed_d_all, num_seeds)
     seed_ids = index.rep_ids[pos]
     no_crit = torch.full((B,), EMPTY_DIST, device=q_vecs.device)
-    state = beam_insert(state, seed_ids, seed_d, criteria=no_crit)
+    real = (None if rows is None or rows == B
+            else torch.arange(B, device=q_vecs.device) < rows)
+    state = beam_insert(state, seed_ids, seed_d, real, criteria=no_crit)
 
     R = min(rerank, width)
     result_i, _ = _best_first_phases(
         state, q_vecs, q_sq, index, measure,
         steps=-(-max_iterations // P), k_best=k_query, P=P, cap=cap,
-        k_out=R, compact_levels=compact_levels, xi_update=dyn,
+        k_out=R, compact_levels=compact_levels, slack=slack, route=route,
+        live_rows=rows,
     )
 
     # exact re-rank of the top survivors (one small f32 gather)
@@ -706,12 +759,16 @@ def fused_query(
     vis_size: int | None = None,
     compact_levels: int = 2,
     width: int | None = None,
+    route: graphs.Route | None = None,
 ):
     """Query one shard through its quantized-adjacency index.
 
     Same user parameters as the reference query (KQuery, tau_query,
     max_iterations -- the total anchor-pop budget, ggnn.cuh:144-155).
-    Queries run in tiles of ``chunk`` rows.
+    Queries run in tiles of ``chunk`` rows, the last one padded by
+    :func:`tile_plan`. ``route``: how the walk's loop runs
+    (:mod:`ggnn_torch.utils.graphs`): by default as CUDA graphs on the card
+    and eagerly on the CPU; ``graphs.EAGER`` is the plain version.
 
     Returns (ids [Q, KQuery] i32, dists [Q, KQuery] f32 exact), rows sorted
     ascending, on the index's device.
@@ -744,14 +801,43 @@ def fused_query(
                 torch.zeros((0, KQuery), dtype=torch.float32, device=dev))
     tau = torch.tensor(tau_query, dtype=torch.float32, device=dev)
     num_seeds = min(num_seeds, int(index.rep_ids.shape[0]))
-    outs = [
-        _fused_query_tile(
-            query[lo : lo + chunk], index, base, base_sq, tau,
+    outs = []
+    for lo, rows, tile in tile_plan(Q, chunk, dev):
+        ids, dists = _fused_query_tile(
+            pad_rows(query[lo : lo + rows], tile), index, base, base_sq, tau,
             width=width, vis_size=vis_size, k_query=KQuery, measure=measure,
             max_iterations=max_iterations, pops_per_iter=P,
             num_seeds=num_seeds, rerank=rerank, cap=cap,
-            compact_levels=max(0, compact_levels),
+            compact_levels=max(0, compact_levels), route=route, rows=rows,
         )
-        for lo in range(0, Q, chunk)
-    ]
+        outs.append((ids[:rows], dists[:rows]))
     return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
+def tile_plan(Q: int, chunk: int, device="cuda") -> list[tuple[int, int, int]]:
+    """(first row, rows, tile rows) of each tile of a ``Q``-row batch on
+    ``device`` (the JAX package's chunk plan): tiles of ``chunk`` rows, the
+    last padded only to the next power of two, at least 256 (a batch below
+    ``chunk`` is one such tile). Every batch size then walks one of a few
+    tile shapes -- and replays one of a few sets of captured programs. Where
+    :func:`_padded` says no (the CPU), each tile walks its own rows."""
+    def rounded(n):
+        return max(256, 1 << (n - 1).bit_length()) if _padded(device) else n
+
+    chunk = min(chunk, rounded(Q))
+    return [(lo, min(chunk, Q - lo), min(chunk, rounded(min(chunk, Q - lo))))
+            for lo in range(0, Q, chunk)]
+
+
+def _padded(device) -> bool:
+    """Whether tiles on ``device`` are padded: on the card, where each tile
+    shape is a set of captured programs, on both routes alike (the same
+    shapes, the same library kernels); the CPU captures nothing."""
+    return torch.device(device).type == "cuda"
+
+
+def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x`` with zero rows appended up to ``rows``."""
+    if x.shape[0] == rows:
+        return x
+    return torch.cat([x, x.new_zeros((rows - x.shape[0], *x.shape[1:]))])

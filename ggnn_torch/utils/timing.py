@@ -2,8 +2,9 @@
 
 The analog of the reference's cudaEvent ``time_launcher`` instrumentation
 (graph_construction.cu:54-77): phases are timed with host clocks around
-device work that is fenced by ``torch.cuda.synchronize()`` at the end of the
-phase, and reported in the same "N queries -> X us/query" format.
+device work that is fenced by a device synchronise at the end of the phase
+(``graphs.synchronize``: never during another thread's graph capture), and
+reported in the same "N queries -> X us/query" format.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from contextlib import contextmanager
 
 import torch
 
+from ggnn_torch.utils import graphs
 from ggnn_torch.utils.logging import vlog
 
 __all__ = ["PhaseTimer"]
@@ -34,8 +36,7 @@ class PhaseTimer:
         try:
             yield
         finally:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            graphs.synchronize(self.device)
             elapsed = time.perf_counter() - start
             self.phases[name] = self.phases.get(name, 0.0) + elapsed
             if n:

@@ -16,9 +16,10 @@ machine without it::
 * The group-2 and int4 fused layouts on one graph, queried on the card and
   on the CPU: ids equal on >= 99% of rows; the int4 queries launch the
   kernel in ``nibbles`` mode.
-* Two slots of one card: two build workers, each launch counted exactly
-  once with the interpreter switching threads every microsecond, and the
-  device merge returning the host merge's ids.
+* Two slots of one card: two build workers capturing their walks' CUDA
+  graphs, each launch counted exactly once -- through the replays of the
+  graphs it was captured into -- with the interpreter switching threads
+  every microsecond, and the device merge returning the host merge's ids.
 """
 
 import sys
@@ -153,20 +154,45 @@ def test_layout_query_card_matches_cpu(cuda_device, data, built, group, bits):
 
 @pytest.mark.cuda
 def test_two_slots_on_one_card(cuda_device, data):
+    """Every launch counted exactly once: a wrapper around the kernel's
+    entry point counts the calls made outside a graph capture, and each
+    replay of a graph adds the calls made while that graph was captured
+    (read from ``torch.cuda.CUDAGraph`` itself, not from the port's
+    accounting)."""
     base, query = data
     adjacency._load()
     launch, calls, lock = adjacency._launch_fn, [0], threading.Lock()
+    captured, tls = {}, threading.local()
+    cls = torch.cuda.CUDAGraph
+    begin, end, replay = cls.capture_begin, cls.capture_end, cls.replay
 
     def counted(*args):
-        with lock:
-            calls[0] += 1
+        if torch.cuda.is_current_stream_capturing():
+            tls.n += 1
+        else:
+            with lock:
+                calls[0] += 1
         return launch(*args)
+
+    def capture_begin(self, *args, **kwargs):
+        tls.n = 0
+        return begin(self, *args, **kwargs)
+
+    def capture_end(self):
+        end(self)
+        captured[id(self)] = tls.n
+
+    def replayed(self):
+        replay(self)
+        with lock:
+            calls[0] += captured[id(self)]
 
     g = GGNN(device=cuda_device)
     g.set_devices([cuda_device, cuda_device])
     g.set_base(base)
     before = adjacency.launches
     adjacency._launch_fn = counted
+    cls.capture_begin, cls.capture_end, cls.replay = capture_begin, capture_end, replayed
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
@@ -174,7 +200,9 @@ def test_two_slots_on_one_card(cuda_device, data):
     finally:
         sys.setswitchinterval(interval)
         adjacency._launch_fn = launch
+        cls.capture_begin, cls.capture_end, cls.replay = begin, end, replay
     assert g.last_build_stats["num_build_workers"] == 2
+    assert sum(s["graphs_captured"] for s in g.last_build_stats["shards"]) > 0
     assert calls[0] > 0 and adjacency.launches - before == calls[0]
     g.build_fused_index()
     kw = dict(engine="fused", num_seeds=8, rerank=16, width=32, cap=32,
