@@ -53,12 +53,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    through graphs (pop budget 2,000; the first call captures, the second is
    timed), rows sorted without duplicates, c@1/c@10 of the first 10
    columns, the graphs captured and their pools' bytes.
-6. Layouts on the fused path's graph: ``build_fused_index(group=2)`` and
-   ``build_fused_index(bits=4)``, each followed by the fused sweep until
-   c@1 >= 0.90; prints each layout's device bytes per point, index seconds
-   and kernel launches. The kernel must launch in both, in ``nibbles`` mode
-   (and only so) for int4. Graph route against eager at each layout's
-   operating point, as in phase 4. Then the path's ``GGNN`` is dropped
+6. Layouts on the fused path's graph: ``build_fused_index(group=2)``,
+   ``build_fused_index(group=4)`` and ``build_fused_index(bits=4)``, each
+   followed by the fused sweep until c@1 >= 0.90; prints each layout's
+   device bytes per point, index seconds and kernel launches. The kernel
+   must launch in all three, in ``nibbles`` mode (and only so) for int4.
+   Graph route against eager at each layout's operating point, as in phase
+   4. Then the path's ``GGNN`` is dropped
    without ``close``: no walk program and no graph pool may be left, and
    the memory allocated must come back within 256 MiB of where it was
    before phase 4.
@@ -68,10 +69,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    launch during the build.
 8. The reference's own build shape (``dense_seed_merge=False``,
    ``sym_mode="walk"``: segment-seeded hierarchic descent, every unconnected
-   pair walked) at 65,536 points and 10,000 queries -- cut from 262,144 to
-   hold the run's time, the walking sym pass being the costly part -- then
-   the row sweep until c@1 >= 0.90. The kernel must launch in the build (the
-   descent's quantized legs).
+   pair walked) at 262,144 points and 10,000 queries, then the row sweep
+   until c@1 >= 0.90. The kernel must launch in the build (the descent's
+   quantized legs). The sym walks step on their default route, the
+   per-step loop: prints the sym seconds per layer (the build's phase
+   timer), each sym pass's walked pairs, live-count reads and graphs
+   captured, the graphs' pools left after the build and the build's peak
+   device memory (allocated and reserved). Then the last layer-0 sym pass
+   of the build is run again on its own input through both routes, the
+   per-step loop and CUDA graphs of 4 steps: the count of rows of the new
+   graph that differ must be 0 and every counter of the pass equal (the
+   walk's own reads and captures aside), with each route's seconds and
+   peak device memory. Then the first walk chunk of that input (the pass's
+   own chunk size and pops per step, its request buffer as it starts) runs
+   under ``torch.profiler`` on the default route: its device busy ms and
+   share, its top 5 kernels by device time and its host syncs; and once
+   through graphs, for the bytes of its program's pool.
 9. Shards out of core: 1,048,576 points (the JAX benchmark's 1M headline
    scale) as 4 shards of 262,144 on the one card, with at most 2 shards on
    the device (``set_max_device_shards(2)``) and a ``set_cpu_memory_limit``
@@ -117,7 +130,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    sweep; graph route against eager at every operating point (and for the
    cosine row walk at (0.5, 64)). The kernel must launch in the builds and
    in the fused queries.
-13. One JSON line with the kernel's numbers (its bound: the bytes it must
+13. The ``nvidia-smi`` name and power-limit line again, then one JSON line
+   with the kernel's numbers (its bound: the bytes it must
    move -- each block a live anchor names read once, the query rows and
    anchors read once, each live output lane written once -- at the H100's
    3.35 TB/s, against 2 flops per code at 67 TFLOP/s f32; the share of it
@@ -131,6 +145,7 @@ traceback to stdout and the script exits 1 without a result line.
 """
 
 import functools
+import inspect
 import json
 import os
 import shutil
@@ -150,6 +165,8 @@ from ggnn_torch import (DistanceMeasure, Evaluator, GGNN, GraphConfig,
 from ggnn_torch.native import build as native_build
 from ggnn_torch.native import io as native_io
 from ggnn_torch import ggnn as ggnn_mod
+from ggnn_torch.build import construction
+from ggnn_torch.build import sym as sym_mod
 from ggnn_torch.native import merge as native_merge
 from ggnn_torch.ops import adjacency
 from ggnn_torch.parallel import merge_over_devices
@@ -174,7 +191,7 @@ TARGET_C1 = 0.90
 ROW_SWEEP = [(0.4, 24), (0.45, 32), (0.5, 48), (0.5, 64),
              (0.5, 100), (0.64, 200), (0.7, 200), (0.64, 400), (1.0, 400)]
 ROW_KW = {"engine": "row", "pops_per_iter": 8, "fetch_cap_fraction": 0.75}
-N_DESCENT = 65_536
+N_DESCENT = 262_144
 N_SHARDED, N_SHARD, MAX_DEVICE_SHARDS = 1_048_576, 262_144, 2
 N_DEVICES, SLOTS = 524_288, 2
 N_CLI, NQ_CLI, CLI_SHARD = 65_536, 1_000, 32_768
@@ -425,8 +442,9 @@ def profile_call(device, fn, label, tiles=1):
     """One call of ``fn`` (after one warm-up) under ``torch.profiler``: its
     host-clock ms under the profiler, the ms in which the card ran a kernel
     or a copy (the union of their spans in the trace), its kernel count, the
-    adjacency kernel's launches and device ms -- what tells a slower call's
-    host from its device -- and its host syncs per query tile (the trace's
+    5 kernels (by name) with the most device ms, the adjacency kernel's
+    launches and device ms -- what tells a slower call's host from its
+    device -- and its host syncs per query tile (the trace's
     ``aten::_local_scalar_dense`` events, a tensor read on the host, and
     the walks' live-count reads), with the graphs captured so far and the
     bytes of their pools. None on the CPU rehearsal, which has no device
@@ -454,6 +472,10 @@ def profile_call(device, fn, label, tiles=1):
         busy_us += max(0.0, b - max(a, end))
         end = max(end, b)
     kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     adj = [e["dur"] for e in kernels if e["name"].startswith("adjacency_dot")]
     syncs = sum(1 for e in events if e.get("name") == "aten::_local_scalar_dense")
     st = graphs.stats()
@@ -464,7 +486,8 @@ def profile_call(device, fn, label, tiles=1):
            "live_reads_per_tile": reads / tiles,
            "graphs_captured": st["captures"], "graphs_cached": st["graphs"],
            "graph_pool_bytes": graphs.pool_bytes(),
-           "graph_buffer_bytes": st["buffer_bytes"]}
+           "graph_buffer_bytes": st["buffer_bytes"],
+           "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
     print(f"profile of one {label} call: {wall_ms:.3f} ms on the host clock "
           f"under the profiler | device busy {out['device_busy_ms']:.3f} ms "
           f"({out['busy_share']:.3f}) in {len(kernels)} kernels | adjacency "
@@ -473,7 +496,8 @@ def profile_call(device, fn, label, tiles=1):
           f"{out['live_reads_per_tile']:.2f}) over {tiles} tiles | graphs "
           f"captured so far {st['captures']}, cached {st['graphs']} in "
           f"{st['programs']} programs, pools {out['graph_pool_bytes']} B, "
-          f"static buffers {st['buffer_bytes']} B", flush=True)
+          f"static buffers {st['buffer_bytes']} B | top 5 kernels by device "
+          f"ms {json.dumps(out['top_kernels_ms'])}", flush=True)
     return out
 
 
@@ -700,20 +724,186 @@ def kquery_path(device, ctx):
 
 def other_build(device, label, n, nq, start, **build_kw):
     """Build ``n`` points with ``build_kw``, then the row sweep from sweep
-    point ``start`` on. Returns (kernel launches in the build, summary)."""
+    point ``start`` on. Returns (kernel launches in the build, summary with
+    the build's peak device memory, the shard's build stats)."""
     base, query = make_dataset(n, nq, d=D, seed=0)
     g = GGNN(device=device)
     g.set_base(base)
     adjacency.launches = 0
+    peak = peak_memory(device)
     build_s = build(g, device, label, **build_kw)
+    build_peak = peak()
     launches = adjacency.launches
     evaluator, _ = ground_truth(g, base, query)
     query_dev = torch.from_numpy(query).to(device)
     best = sweep(g, query_dev, base, query, evaluator, ROW_SWEEP[start:],
                  ROW_KW, device, f"{label} row", reps=3, warmup=1)
     print(f"{label}: {json.dumps(best)} | kernel launches in the build "
-          f"{launches}", flush=True)
-    return launches, {"build_s": build_s, **best}
+          f"{launches} | build peak device memory {json.dumps(build_peak)}",
+          flush=True)
+    return (launches, {"build_s": build_s, "build_peak": build_peak, **best},
+            g.last_build_stats["shards"][0])
+
+
+@contextmanager
+def last_layer0_sym(route=None):
+    """While inside, builds run their sym passes (on ``route`` if given,
+    else on the pass's default) and the input of the last layer-0 pass is
+    kept: yields a dict that receives its positional ``args`` and keywords
+    ``kw``."""
+    recorded = {}
+    sym_pass = construction.sym_pass
+    on_route = {} if route is None else {"route": route}
+
+    def record(*args, **kw):
+        if args[6] == 0:  # the layer
+            recorded["args"], recorded["kw"] = args, kw
+        return sym_pass(*args, **kw, **on_route)
+
+    construction.sym_pass = record
+    try:
+        yield recorded
+    finally:
+        construction.sym_pass = sym_pass
+
+
+def walk_chunk(device, args, kw, route=graphs.EAGER):
+    """The first walk chunk of a layer-0 ``sym_pass(*args, **kw)`` in walk
+    mode (as :func:`last_layer0_sym` keeps them: the pass's own chunk size
+    and pops per step), against the pass's request buffer as it starts.
+    Returns (a call that walks it through ``route``, its pairs, the tensors
+    its programs read)."""
+    bound = inspect.signature(sym_mod.sym_pass).bind(*args, **kw)
+    bound.apply_defaults()
+    a = bound.arguments
+    base, base_sq, nbrs, cfg = a["base"], a["base_sq"], a["nbrs"], a["cfg"]
+    KL, Nl = cfg.KL, cfg.Ns[0]
+    need = sym_mod._rows_needing_walk(nbrs, KL=KL)
+    rows = torch.nonzero(need.reshape(-1))[:, 0]
+    chunk_rows = sym_mod._walk_chunk_rows(rows.shape[0], Nl, KL,
+                                          a["chunk_nodes"])
+    rows = rows[:chunk_rows]
+    nn1_stats, tau, measure = a["nn1_stats"], a["tau_build"], a["measure"]
+    sym_buffer = torch.full((Nl, cfg.KF), -1, dtype=torch.int32, device=device)
+    sym_atomic = torch.zeros((Nl,), dtype=torch.int32, device=device)
+    tau = torch.tensor(tau, dtype=torch.float32, device=device)
+    if DistanceMeasure(measure) == DistanceMeasure.Euclidean:  # as sym_pass
+        xi = nn1_stats[0] * nn1_stats[0] * tau * tau
+    else:
+        xi = nn1_stats[0] * tau
+
+    def chunk():
+        sym_buffer.fill_(-1)
+        sym_atomic.zero_()
+        sym_mod._walk_requests(rows, nbrs, None, base, base_sq, xi, sym_buffer,
+                               sym_atomic, cfg=cfg, measure=measure,
+                               chunk_rows=chunk_rows,
+                               pops_per_iter=a["pops_per_iter"], route=route)
+
+    return chunk, rows.shape[0], (nbrs, sym_buffer)
+
+
+def peak_memory(device):
+    """Zero the allocator's peaks; returns a call that gives the device
+    bytes allocated and reserved at their peak since, and allocated
+    before (None off the card)."""
+    if device.type != "cuda":
+        return lambda: None
+    _sync(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_allocated(device)
+
+    def read():
+        _sync(device)
+        return {"peak_allocated": torch.cuda.max_memory_allocated(device),
+                "peak_reserved": torch.cuda.max_memory_reserved(device),
+                "allocated_before": before}
+
+    return read
+
+
+def sym_routes(device, args, kw, routes):
+    """The sym pass on ``args`` once per entry of ``routes``
+    (``graphs.EAGER`` or ``graphs.GRAPHS``), each timed on the host clock
+    around a synchronise, with its peak device memory. Returns
+    [(new_nbrs, stats, seconds, peak memory)]."""
+    out = []
+    for route in routes:
+        peak = peak_memory(device)
+        t0 = time.perf_counter()
+        new, stats = construction.sym_pass(*args, **kw, route=route)
+        _sync(device)
+        out.append((new, stats, time.perf_counter() - t0, peak()))
+    return out
+
+
+def descent_path(device, n=N_DESCENT, nq=NQ):
+    """Phase 8: the descent + walk build with its row sweep (``other_build``),
+    the sym passes' seconds per layer, live-count reads and captures, the
+    last layer-0 sym pass again through both routes with their peak device
+    memory, and one walk chunk of it under the profiler. Returns (kernel
+    launches in the build, summary)."""
+    with last_layer0_sym() as recorded:
+        launches, out, stats = other_build(
+            device, "descent+walk", n, nq, 0, dense_seed_merge=False,
+            sym_mode="walk")
+    passes = stats["sym"]
+    sym_s = {k: v for k, v in stats["phases"].items() if k.startswith("sym[")}
+    out["sym"] = {
+        "seconds_per_layer": sym_s,
+        "walk_rows": [p["walk_rows"] for p in passes],
+        "live_reads": [p["walk_live_reads"] for p in passes],
+        "graphs_captured": sum(p["walk_graphs_captured"] for p in passes),
+        "graphs_captured_build": stats["graphs_captured"],
+        "pool_bytes_after_build": graphs.pool_bytes(),
+    }
+    print(f"descent+walk sym passes ({len(passes)}, layers "
+          f"{[p['layer'] for p in passes]}): seconds per layer "
+          f"{json.dumps({k: round(v, 3) for k, v in sym_s.items()})} | walked "
+          f"pairs per pass {out['sym']['walk_rows']} | live-count reads per pass "
+          f"{out['sym']['live_reads']} | graphs captured in the sym passes "
+          f"{out['sym']['graphs_captured']} (build {stats['graphs_captured']}) "
+          f"| pools after the build {out['sym']['pool_bytes_after_build']} B",
+          flush=True)
+
+    # the last layer-0 pass again, on its own input, through both routes
+    args, kw = recorded["args"], recorded["kw"]
+    (want, want_st, eager_s, eager_mem), (got, got_st, graph_s, graph_mem) = \
+        sym_routes(device, args, kw, (graphs.EAGER, graphs.GRAPHS))
+    rows = int(torch.any(got != want, dim=1).sum())
+    keys = [k for k in want_st if not k.startswith("walk_")] + ["walk_rows"]
+    same = all(got_st[k] == want_st[k] for k in keys)
+    print(f"layer-0 sym pass (walk, {want_st['walk_rows']} pairs walked): graph "
+          f"route vs eager route: {rows} of {want.shape[0]} rows differ | "
+          f"counters equal: {same} ({json.dumps({k: got_st[k] for k in keys})}) "
+          f"| s: graphs {graph_s:.3f}, eager {eager_s:.3f} | live-count reads: "
+          f"graphs {got_st['walk_live_reads']}, eager {want_st['walk_live_reads']}"
+          f" | graphs captured {got_st['walk_graphs_captured']} | peak device "
+          f"memory: graphs {json.dumps(graph_mem)}, eager {json.dumps(eager_mem)}",
+          flush=True)
+    if rows or not same:
+        raise AssertionError("the layer-0 sym pass differs between the graph "
+                             f"and the eager route: {rows} rows, counters "
+                             f"{got_st} vs {want_st}")
+    out["sym"]["layer0_pass"] = {
+        "rows_differing": rows, "counters_equal": same, "graph_s": graph_s,
+        "eager_s": eager_s, "live_reads_graphs": got_st["walk_live_reads"],
+        "live_reads_eager": want_st["walk_live_reads"],
+        "graphs_captured": got_st["walk_graphs_captured"],
+        "peak_memory_graphs": graph_mem, "peak_memory_eager": eager_mem}
+    del want, got
+
+    chunk, pairs, _ = walk_chunk(device, args, kw)
+    out["sym"]["chunk_profile"] = profile_call(
+        device, chunk, f"sym walk chunk ({pairs} pairs, per-step loop)")
+    chunk, _, reads = walk_chunk(device, args, kw, graphs.GRAPHS)
+    chunk()
+    out["sym"]["chunk_pool_bytes"] = graphs.pool_bytes()
+    print(f"sym walk chunk: {pairs} pairs | its program's pool through graphs "
+          f"{out['sym']['chunk_pool_bytes']} B", flush=True)
+    graphs.drop(*reads)
+    return launches, out
 
 
 def _sync(device):
@@ -722,13 +912,14 @@ def _sync(device):
 
 
 def layouts_path(device, ctx):
-    """The grouped and int4 fused layouts on the fused path's graph, each
+    """The grouped (2 and 4) and int4 fused layouts on the fused path's graph, each
     swept until c@1 >= 0.90. Returns each layout's operating point, index
     seconds, device bytes per point and kernel launches."""
     g = ctx["g"]
     n = g._base.shape[0]
     out = {}
-    for label, kw in (("group2", {"group": 2}), ("int4", {"bits": 4})):
+    for label, kw in (("group2", {"group": 2}), ("group4", {"group": 4}),
+                      ("int4", {"bits": 4})):
         t0 = time.perf_counter()
         g.build_fused_index(**kw)
         _sync(device)
@@ -1143,16 +1334,14 @@ def run(device):
     layouts = layouts_path(device, ctx)
     del ctx
     released = released_check(device, allocated)
-    t0 = _phase("group-2 and int4 layouts + fused sweeps", t0)
+    t0 = _phase("group-2, group-4 and int4 layouts + fused sweeps", t0)
     start = ROW_SWEEP.index((row["tau"], row["iters"]))
-    launches, f32 = other_build(device, "f32-fetch", N, NQ, start,
-                                quantized_fetch=False)
+    launches, f32, _ = other_build(device, "f32-fetch", N, NQ, start,
+                                   quantized_fetch=False)
     _not_launched(launches, "the f32-fetch build")
     torch.cuda.empty_cache()
     t0 = _phase("f32-fetch build + row sweep", t0)
-    launches_descent, descent = other_build(
-        device, "descent+walk", N_DESCENT, NQ, 0, dense_seed_merge=False,
-        sym_mode="walk")
+    launches_descent, descent = descent_path(device)
     _launched(launches_descent, "the descent build's quantized legs", device)
     torch.cuda.empty_cache()
     t0 = _phase("descent build + row sweep", t0)
@@ -1185,6 +1374,7 @@ def run(device):
     per_path = {
         "fused_path": summary["launches"],
         "group2_queries": layouts["group2"]["launches"],
+        "group4_queries": layouts["group4"]["launches"],
         "int4_queries": layouts["int4"]["launches"],
         "int4_queries_nibbles": layouts["int4"]["launches_nibbles"],
         "descent_build": launches_descent,
@@ -1218,11 +1408,15 @@ def run(device):
         "group2": numbers(group2),
         "real_anchors": {"group1": numbers(summary["real"]),
                          "group2": numbers(layouts["group2"]["real"]),
+                         "group4": numbers(layouts["group4"]["real"]),
                          "int4": numbers(layouts["int4"]["real"])},
         "launches_per_path": per_path,
         "resources": resources,
         "i2f": i2f,
     }]
+    # the card's line again beside the numbers, should the head of the log
+    # be cut
+    print(smi[0], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
 
 

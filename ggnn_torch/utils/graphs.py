@@ -12,18 +12,19 @@ the pop budget is spent or no more than ``floor`` rows are live.
 
 Two routes run that loop:
 
-* **graphs** (the default on a CUDA device): ``STEPS_PER_REPLAY`` steps
-  are captured once into a ``torch.cuda.CUDAGraph`` over static buffers and
-  replayed; the host reads the live-row count once per replay. Rows walk
-  independently and a row whose pop comes up empty stays unchanged by later
-  steps, so the extra steps a replay may run past the point where the
-  per-step loop would have stopped change no result. A failed capture or
+* **graphs** (the default on a CUDA device, but for the sym pass's walk):
+  ``STEPS_PER_REPLAY`` steps are captured once into a ``torch.cuda.CUDAGraph``
+  over static buffers and replayed; the host reads the live-row count after
+  each replay that leaves some of the step budget. Rows walk independently
+  and a row whose pop comes up empty stays unchanged by later steps, so the
+  extra steps a replay may run past the point where the per-step loop
+  would have stopped change no result. A failed capture or
   replay raises; nothing falls back to the eager loop. On the CPU the same
   programs step their static buffers without a graph (tests only: it holds
   the chunked check and the buffers' bookkeeping to the eager loop).
 * **eager** (the CPU's, and the plain version the graphs are held
   against): the steps run one by one and the live count is read after
-  every step.
+  every step but the budget's last.
 
 A *program* holds the static buffers of one walk shape and one graph per
 step count. It is cached under the step's static arguments, the shapes
@@ -72,6 +73,7 @@ __all__ = [
     "stats",
     "synchronize",
     "thread_captures",
+    "thread_live_reads",
 ]
 
 # steps per replay: a fused query tile at its operating point runs ~6 steps
@@ -158,6 +160,16 @@ def synchronize(device) -> None:
 def thread_captures() -> int:
     """Graphs captured by the calling thread so far."""
     return getattr(_tls, "captures", 0)
+
+
+def thread_live_reads() -> int:
+    """Live-count reads made by the calling thread so far."""
+    return getattr(_tls, "live_reads", 0)
+
+
+def _read_live() -> None:
+    _tls.live_reads = thread_live_reads() + 1
+    _bump("live_reads")
 
 
 def _side_stream(device: torch.device):
@@ -250,10 +262,10 @@ class _Program:
         _tls.captures = thread_captures() + 1
         _bump("captures")
 
-    def replay(self, step, n: int) -> int:
+    def replay(self, step, n: int) -> None:
         """Run ``n`` steps of ``step`` (capturing their graph first if
-        needed; on the CPU without a graph); returns the live-row count,
-        read on the host."""
+        needed; on the CPU without a graph); the live-row count is left in
+        ``count``."""
         if self.device.type != "cuda":
             self._steps(step, n)
         else:
@@ -264,7 +276,6 @@ class _Program:
             for fn, args in launches:
                 fn(*args)
         _bump("replays")
-        return int(self.count)
 
 
 def _key(name, carry, consts, reads):
@@ -357,12 +368,14 @@ def run_steps(step, carry, consts, live, *, it: int, steps: int, live_n: int,
               floor: int, route: Route, name=(), reads=()):
     """Step the walk while ``it < steps`` and more than ``floor`` rows are
     live: on the graphs route ``STEPS_PER_REPLAY`` steps between two reads
-    of the live count, on the eager route one.
+    of the live count, on the eager route one. No read follows the step
+    that spends the budget: it would decide nothing.
 
     ``step(carry, consts) -> (carry, live [B] bool)`` must be free of host
     syncs and read no tensor other than its arguments and ``reads`` (plus
     Python constants, which belong in ``name``). ``live_n``: the live count
-    on entry. Returns ``(carry, live, it, live_n)`` after the last step;
+    on entry. Returns ``(carry, live, it, live_n)`` after the last step,
+    ``live_n`` as last read (stale once ``it == steps``; ``live`` is not);
     the carry is the caller's own (never a program's buffers)."""
     if not (it < steps and live_n > floor):
         return carry, live, it, live_n
@@ -370,8 +383,9 @@ def run_steps(step, carry, consts, live, *, it: int, steps: int, live_n: int,
         while it < steps and live_n > floor:
             carry, live = step(carry, consts)
             it += 1
-            live_n = int(live.sum())
-            _bump("live_reads")
+            if it < steps:
+                live_n = int(live.sum())
+                _read_live()
         return carry, live, it, live_n
     _reap()
     prog = _program(name, carry, consts, live, reads)
@@ -379,9 +393,11 @@ def run_steps(step, carry, consts, live, *, it: int, steps: int, live_n: int,
         prog.load(carry, consts)
         while it < steps and live_n > floor:
             n = min(STEPS_PER_REPLAY, steps - it)
-            live_n = prog.replay(step, n)
+            prog.replay(step, n)
             it += n
-            _bump("live_reads")
+            if it < steps:
+                live_n = int(prog.count)
+                _read_live()
         carry, live = prog.unload()
     return carry, live, it, live_n
 

@@ -22,6 +22,8 @@ every step. CPU cases (no JAX; 1,024 points, one intra-op thread):
 * ``q . zero`` computed once per tile and selected with the rows equals the
   per-step product on the selected rows.
 * A launch made while a graph is captured is counted once per replay.
+* No live-count read follows the step that spends the budget, on either
+  route.
 
 Card cases (marker ``cuda``; skipped without a card)::
 
@@ -29,18 +31,23 @@ Card cases (marker ``cuda``; skipped without a card)::
 
 * The graph route equals the eager route bit for bit on a small base: fused
   u8, group 2 and int4, the row walk, cosine, a uint8 base and k_query=6000;
-  the kernel's launches rise by the replays' count.
+  the kernel's launches rise by the replays' count. So does a layer-0 sym
+  pass in walk mode (new graph and counters) on the graph route, with one
+  capture for its one walk shape; no program is left reading its graph.
 * A rotated run through graphs equals the all-resident one, and its
   second call captures fewer graphs than its first.
 * A GGNN that goes out of scope gives back its device memory, the graphs'
   pools included.
 """
 
+from typing import NamedTuple
+
 import numpy as np
 import pytest
 import torch
 
 from ggnn_torch import GGNN, DistanceMeasure
+from ggnn_torch.build.sym import sym_pass
 from ggnn_torch.ops import adjacency
 from ggnn_torch.ops.beam import beam_init, beam_insert
 from ggnn_torch.ops.distance import dist_block, squared_norms
@@ -367,6 +374,32 @@ def test_launch_counted_per_replay():
     assert calls == [1] and rec == [(calls.append, (2,))]
 
 
+class _Count(NamedTuple):
+    x: torch.Tensor
+
+
+@pytest.mark.parametrize("route, S, reads", [
+    (graphs.EAGER, 4, 4), (graphs.GRAPHS, 4, 1), (graphs.GRAPHS, 5, 0)])
+def test_no_read_once_the_budget_is_spent(route, S, reads, monkeypatch):
+    """A walk of 5 steps whose rows all stay live: the eager route reads
+    the live count after each of its first 4 steps, graphs of 4 steps after
+    the first replay only, one replay of 5 steps never; all run 5 steps."""
+    monkeypatch.setattr(graphs, "STEPS_PER_REPLAY", S)
+    inc = torch.arange(3)
+
+    def step(c, k):
+        return _Count(c.x + k[0]), torch.ones(3, dtype=torch.bool)
+
+    before = graphs.thread_live_reads()
+    carry, live, it, live_n = graphs.run_steps(
+        step, _Count(torch.zeros(3, dtype=torch.int64)), (inc,),
+        torch.ones(3, dtype=torch.bool), it=0, steps=5, live_n=3, floor=0,
+        route=route, name=("budget",), reads=(inc,))
+    assert graphs.thread_live_reads() - before == reads
+    assert it == 5 and live_n == 3 and bool(live.all())
+    assert torch.equal(carry.x, 5 * inc)
+
+
 # --- on the card ------------------------------------------------------------
 
 NC, NQC, DC, KC = 4096, 1000, 128, 24
@@ -463,6 +496,29 @@ def test_card_kquery_6000_graph_route_equals_eager(card):
     _same([t.cpu() for t in row[0]], [t.cpu() for t in row[1]])
     d = fused[1][1].cpu().numpy()
     assert np.all(np.diff(d, axis=1)[np.isfinite(d[:, 1:])] >= 0)
+
+
+@pytest.mark.cuda
+def test_card_sym_walk_graph_route_equals_eager(card):
+    """A layer-0 sym pass in walk mode: the walk's steps replayed as graphs
+    give the per-step loop's graph and counters, with one capture for the
+    pass's one walk shape and fewer live-count reads."""
+    g, _, m = card["f32"]
+    shard = g._shards[0]
+    nbrs = shard.graph.neighbors[0]
+    args = (shard.base_dev, shard.base_sq, nbrs, None, shard.graph.nn1_stats,
+            g._cfg, 0, m, 0.5)
+    want, want_stats = sym_pass(*args, mode="walk")  # the per-step loop
+    got, stats = sym_pass(*args, mode="walk", route=graphs.GRAPHS)
+    assert torch.equal(got, want)
+    assert stats["walk_rows"] > 0
+    for key in ("overflow", "added_links", "walk_rows", "total_rows"):
+        assert stats[key] == want_stats[key], key
+    assert stats["walk_graphs_captured"] == 1
+    assert want_stats["walk_graphs_captured"] == 0
+    assert stats["walk_live_reads"] < want_stats["walk_live_reads"]
+    ptr = (str(nbrs.device), nbrs.data_ptr())
+    assert not any(ptr in r for r in graphs.entries())
 
 
 @pytest.mark.cuda
