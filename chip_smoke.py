@@ -130,7 +130,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    sweep; graph route against eager at every operating point (and for the
    cosine row walk at (0.5, 64)). The kernel must launch in the builds and
    in the fused queries.
-13. The ``nvidia-smi`` name and power-limit line again, then one JSON line
+13. The headline: ``bench_torch.run`` (the port of the JAX package's
+   ``bench.py``) at its own scale, 1,000,000 points resident on the card
+   and 50,000 queries (k_build=48, group 1, one build, no cache): build,
+   fused index, brute force (50,000 x 1,000,000, k=100) and ``bench.py``'s
+   sweep. Prints its result line (``headline: {...}``), the build's phase
+   seconds, the brute-force, index and sweep seconds, every sweep point,
+   the index's and the base's device bytes per point and the peak device
+   memory of each stage. A sweep point must reach c@1 >= 0.90, the kernel
+   must launch in the build and again in the queries, and the ground
+   truth's distances on a sample of rows must be the exact ones. Then one
+   call at the operating point under ``torch.profiler`` (as in phase 4)
+   and the kernel against its plain version on that call's real anchors.
+14. The ``nvidia-smi`` name and power-limit line again, then one JSON line
    with the kernel's numbers (its bound: the bytes it must
    move -- each block a live anchor names read once, the query rows and
    anchors read once, each live output lane written once -- at the H100's
@@ -160,6 +172,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+import bench_torch
+from bench_torch import QKW, make_dataset
 from ggnn_torch import (DistanceMeasure, Evaluator, GGNN, GraphConfig,
                         UCharDataset, store_fvecs)
 from ggnn_torch.native import build as native_build
@@ -176,9 +190,8 @@ from ggnn_torch.utils import graphs
 
 N, NQ, D = 262_144, 10_000, 128
 K_BUILD, TAU_BUILD, K_QUERY = 48, 0.5, 10
-# fused-query knobs and the (tau, pop budget, pops per step) sweep of the
-# JAX package's benchmark (bench.py), cheapest first
-QKW = {"engine": "fused", "num_seeds": 8, "rerank": 16, "width": 32, "cap": 32}
+# the fused-query knobs of the benchmark (bench_torch.QKW, imported above)
+# and points of its (tau, pop budget, pops per step) sweep, cheapest first
 SWEEP = [
     (0.64, 20, 4), (0.64, 24, 4), (0.64, 28, 4), (0.64, 32, 4),
     (0.64, 40, 5), (0.64, 48, 8), (0.51, 64, 8), (0.64, 100, 8),
@@ -198,24 +211,12 @@ N_CLI, NQ_CLI, CLI_SHARD = 65_536, 1_000, 32_768
 # k_query at the reference's bound: queries, pop budget, fused pops per step
 KQ_MAX, NQ_KQ, KQ_BUDGET, KQ_FUSED_P = 6000, 1_000, 2_000, 32
 N_MEASURES = 65_536  # the cosine build and the uint8 base
+# bench.py's own scale: points resident on the card, queries
+N_HEADLINE, NQ_HEADLINE = 1_000_000, 50_000
 # batch sizes of the tile-plan check, in this order, each a call of its own
 MIX = (1000, 3000, 777, 5000, 10000, 1500, 4096, 2500, 8192, 300)
 # the H100's published peaks (SXM, 700 W): HBM bytes/s and f32 FLOP/s
 HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
-
-
-def make_dataset(n, nq, d=128, d_latent=24, seed=0):
-    """SIFT-like synthetic vectors: uint8-range, low intrinsic dimension
-    (the generator of the JAX package's bench.py)."""
-    rng = np.random.default_rng(seed)
-    w = rng.normal(size=(d_latent, d)).astype(np.float32) / np.sqrt(d_latent)
-
-    def sample(m):
-        z = rng.normal(size=(m, d_latent)).astype(np.float32)
-        x = z @ w * 40.0 + 128.0 + rng.normal(0, 4, size=(m, d)).astype(np.float32)
-        return np.clip(x, 0, 255).astype(np.float32)
-
-    return sample(n), sample(nq)
 
 
 def time_ms(fn, device, reps=10, warmup=2):
@@ -514,20 +515,22 @@ def _not_launched(count, what):
                              "times; its path runs no kernel")
 
 
-def _check_exact(ids, dists, base, query, measure=DistanceMeasure.Euclidean):
-    """The first query's returned distances are the exact ones (squared L2,
-    or cosine)."""
-    row = ids[0][ids[0] >= 0]
-    b = base[row].astype(np.float64)
-    q = np.asarray(query[0], dtype=np.float64)
-    if measure == DistanceMeasure.Euclidean:
-        exact = np.sum((b - q) ** 2, axis=-1)
-        tol = dict(rtol=1e-4, atol=1e-2)
-    else:
-        exact = np.abs(1.0 - b @ q / np.sqrt(np.sum(b * b, -1) * np.sum(q * q)))
-        tol = dict(rtol=1e-3, atol=1e-5)
-    if not np.allclose(dists[0][: len(row)], exact, **tol):
-        raise AssertionError("query distances are not the exact ones")
+def _check_exact(ids, dists, base, query, measure=DistanceMeasure.Euclidean,
+                 rows=(0,)):
+    """The returned distances of the query ``rows`` (the first by default)
+    are the exact ones (squared L2, or cosine)."""
+    for r in rows:
+        row = ids[r][ids[r] >= 0]
+        b = base[row].astype(np.float64)
+        q = np.asarray(query[r], dtype=np.float64)
+        if measure == DistanceMeasure.Euclidean:
+            exact = np.sum((b - q) ** 2, axis=-1)
+            tol = dict(rtol=1e-4, atol=1e-2)
+        else:
+            exact = np.abs(1.0 - b @ q / np.sqrt(np.sum(b * b, -1) * np.sum(q * q)))
+            tol = dict(rtol=1e-3, atol=1e-5)
+        if not np.allclose(dists[r][: len(row)], exact, **tol):
+            raise AssertionError(f"the distances of query {r} are not the exact ones")
 
 
 def sweep(g, query_dev, base, query, evaluator, points, kw, device, label,
@@ -571,8 +574,13 @@ def build(g, device, label, **kw):
     t0 = time.perf_counter()
     g.build(k_build=K_BUILD, tau_build=TAU_BUILD, refinement_iterations=2, **kw)
     build_s = time.perf_counter() - t0
-    n = g._base.shape[0]
-    phases = g.last_build_stats["shards"][0]["phases"]
+    print_build(label, build_s, g._base.shape[0],
+                g.last_build_stats["shards"][0]["phases"])
+    return build_s
+
+
+def print_build(label, build_s, n, phases):
+    """A build's seconds, by phase kind and by phase."""
     kinds = {}
     for name, sec in phases.items():
         kinds[name.split("[")[0]] = kinds.get(name.split("[")[0], 0.0) + sec
@@ -581,7 +589,6 @@ def build(g, device, label, **kw):
           f"{json.dumps({k: round(v, 3) for k, v in kinds.items()})}", flush=True)
     print(f"{label} build phases (s): "
           + json.dumps({k: round(v, 3) for k, v in phases.items()}), flush=True)
-    return build_s
 
 
 def ground_truth(g, base, query, measure=DistanceMeasure.Euclidean):
@@ -1266,6 +1273,68 @@ def measures_path(device, n=N_MEASURES, nq=NQ):
     return out
 
 
+def headline_path(device, n=N_HEADLINE, nq=NQ_HEADLINE):
+    """The port's headline benchmark (``bench_torch.run``) at ``n`` points
+    resident and ``nq`` queries, one build and no cache. Prints its result
+    line and what it saw; the result must hold an operating point at c@1 >=
+    0.90, the kernel must launch in the build and in the queries, and the
+    ground truth's distances on 16 sampled rows must be the exact ones.
+    Returns (the result, its stats without the data)."""
+    stats = {}
+    adjacency.launches = 0
+    result = bench_torch.run(n=n, nq=nq, k_build=K_BUILD, group=1, device=device,
+                             cache=None, warm_build=False, curve=False,
+                             stats=stats)
+    launches = adjacency.launches
+    print(f"headline: {json.dumps(result)}", flush=True)
+    base, query = stats.pop("base"), stats.pop("query")
+    gt_ids, gt_dists = stats.pop("gt_ids"), stats.pop("gt_dists")
+    if gt_ids.shape != (nq, 100) or not np.all(np.isfinite(gt_dists)):
+        raise AssertionError("headline: malformed ground truth")
+    sample = np.random.default_rng(0).choice(nq, 16, replace=False)
+    _check_exact(gt_ids, gt_dists, base, query, rows=sample)
+    print_build("headline", stats["build_or_load_s"], n, stats["build_phases"])
+    peaks = stats.get("peak_memory", {})
+    peak = {k: max((p[k] for p in peaks.values()), default=None)
+            for k in ("allocated", "reserved")}
+    print(f"headline ({n} points, {nq} queries): fused index "
+          f"{stats['index_s']:.2f} s | brute force "
+          f"{stats['bf_s']:.2f} s | sweep {stats['sweep_s']:.2f} s | device bytes "
+          f"per point: index {stats['index_bytes_per_point']:.1f}, base "
+          f"{stats['base_bytes_per_point']} | peak device memory by stage "
+          f"{json.dumps(peaks)}, over the run {json.dumps(peak)} | kernel "
+          f"launches: build {stats['launches_build']}, queries "
+          f"{stats['launches_queries']}", flush=True)
+    for p in stats["points"]:
+        print(f"headline query tau={p['tau']} iters={p['iters']} P={p['P']}: "
+              f"c@1={p['c1']:.4f} c@10={p['c10']:.4f} qps={p['qps']:.1f}",
+              flush=True)
+    g = stats.pop("ggnn")
+    try:
+        if result["value"] <= 0:
+            raise AssertionError(f"headline: no sweep point reached c@1 >= {TARGET_C1}")
+        _launched(stats["launches_build"], "the headline build", device)
+        _launched(stats["launches_queries"], "the headline queries", device)
+        if stats["launches_build"] + stats["launches_queries"] != launches:
+            raise AssertionError("headline: kernel launches outside the build and "
+                                 "the queries")
+        # the operating point once more, under the profiler, and the kernel on
+        # its real anchors (launches made after the path's counts were read)
+        d = result["detail"]
+        point = {"tau": d["tau_query"], "iters": d["max_iterations"],
+                 "P": d["pops_per_iter"]}
+        query_dev = torch.from_numpy(query).to(device)
+        stats["profile"] = profile_call(device, lambda: g.query(
+            query_dev, K_QUERY, point["tau"], point["iters"],
+            **dict(QKW, pops_per_iter=point["P"])), "headline fused query",
+            tiles=-(-nq // 8192))
+        stats["real"] = kernel_on_real_anchors(device, g, query_dev, point,
+                                               "headline")
+    finally:
+        g.close()
+    return result, dict(stats, peak_memory_run=peak)
+
+
 def released_check(device, allocated):
     """After the fused path's GGNN went out of scope (no ``close``): no
     walk program is left, its graphs' pools are gone, and the device memory
@@ -1358,6 +1427,10 @@ def run(device):
     measures = measures_path(device)
     torch.cuda.empty_cache()
     t0 = _phase("cosine build and uint8 base (builds, sweeps, graph vs eager)", t0)
+    headline, headline_stats = headline_path(device)
+    torch.cuda.empty_cache()
+    t0 = _phase(f"headline (bench_torch.run: {N_HEADLINE} points, {NQ_HEADLINE} "
+                "queries)", t0)
     print("summary: " + json.dumps({
         "fused": {k: summary[k] for k in ("tau", "iters", "P", "qps", "c1",
                                           "c10", "build_s", "profile")},
@@ -1368,7 +1441,8 @@ def run(device):
         "layouts": {k: {f: v for f, v in r.items() if f != "real"}
                     for k, r in layouts.items()}, "f32_fetch_build": f32,
         "descent_walk_build": descent, "sharded": sharded, "devices": devices,
-        "cli_s": cli,
+        "cli_s": cli, "headline": {"result": headline, **{
+            k: v for k, v in headline_stats.items() if k != "real"}},
     }), flush=True)
 
     per_path = {
@@ -1387,6 +1461,8 @@ def run(device):
         "cosine_queries": measures["cosine"]["launches_queries"],
         "uint8_build": measures["uint8"]["launches_build"],
         "uint8_queries": measures["uint8"]["launches_queries"],
+        "headline_build": headline_stats["launches_build"],
+        "headline_queries": headline_stats["launches_queries"],
         "row_queries": 0, "f32_fetch_build": 0, "kquery_row": 0,
     }
 
@@ -1409,7 +1485,8 @@ def run(device):
         "real_anchors": {"group1": numbers(summary["real"]),
                          "group2": numbers(layouts["group2"]["real"]),
                          "group4": numbers(layouts["group4"]["real"]),
-                         "int4": numbers(layouts["int4"]["real"])},
+                         "int4": numbers(layouts["int4"]["real"]),
+                         "headline": numbers(headline_stats["real"])},
         "launches_per_path": per_path,
         "resources": resources,
         "i2f": i2f,

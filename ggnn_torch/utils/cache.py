@@ -4,15 +4,17 @@ The adjacency kernel (``nvcc``) and the native host runtime (``g++``) are
 compiled from the sources in the package into one directory, each library
 named by a hash of its source and its compiler flags: a library built from
 another source, or with other flags, is never loaded, whatever the files'
-times. ``GGNN_TORCH_CACHE`` moves the directory (for an installed package,
-whose own tree is usually not writable); the default is ``build/kernels/``
-under the repository root.
+times. ``GGNN_TORCH_CACHE`` names the directory; without it, a package in
+a source checkout (a ``pyproject.toml`` beside the package directory) uses
+``build/kernels/`` there, and an installed package ``ggnn_torch`` in the
+temporary directory, never its own tree.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import tempfile
 from pathlib import Path
 
 __all__ = ["cache_dir", "keyed_library"]
@@ -22,7 +24,10 @@ def cache_dir() -> Path:
     d = os.environ.get("GGNN_TORCH_CACHE")
     if d:
         return Path(d)
-    return Path(__file__).resolve().parents[2] / "build" / "kernels"
+    root = Path(__file__).resolve().parents[2]
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "kernels"
+    return Path(tempfile.gettempdir()) / "ggnn_torch"
 
 
 def keyed_library(stem: str, source: Path, flags) -> Path:
