@@ -7,12 +7,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: print the ``nvidia-smi`` name and power-limit line; a CUDA device
    is required (there is no CPU fallback).
-2. Kernel build: compile ``ggnn_torch/csrc/adjacency_dot.cu`` from this
-   checkout and print the seconds it took and the library's path (named by
-   the hash of the source and the nvcc flags), then each kernel's registers,
-   shared and local (spill) bytes (``cuobjdump -res-usage``) and the count
-   of ``I2F*`` instructions in its SASS (``cuobjdump -sass``; 0 by design),
-   or "not available" where the toolkit has no ``cuobjdump``.
+2. Kernel build: compile ``ggnn_torch/csrc/adjacency_dot.cu`` and
+   ``ggnn_torch/csrc/beam_dedup.cu`` from this checkout, one ``nvcc`` each,
+   both at once, and print the seconds each took and the libraries' paths
+   (named by the hash of the source and the nvcc flags), then each kernel's
+   registers, shared and local (spill) bytes (``cuobjdump -res-usage``) and
+   the count of ``I2F*`` instructions in the adjacency kernels' SASS
+   (``cuobjdump -sass``; 0 by design), or "not available" where the
+   toolkit has no ``cuobjdump``.
 3. Kernel against plain: ``adjacency_dot`` vs ``adjacency_dot_plain`` on the
    card at the paths' shapes (B=8192 rows, P=8 anchors, D=128 bytes per
    code row, ~10% empty anchors: 48 rows per block for group 1, 24 for
@@ -20,6 +22,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    rtol 1e-5 / atol 1e-2 (f32 summation order); both timed with CUDA events
    after a warm-up. Phases 4 and 6 repeat the check on the real anchors of
    a fused query's third walk step for each layout.
+3b. Dedup kernel against plain: ``beam_dedup_mask`` (the fused query's and
+   the quantized merge's steps) and ``beam_dedup_compact`` (the row query's,
+   the f32 merge's and the sym walk's steps) against their plain versions
+   at each step's shape (``DEDUP_SHAPES``: B=8192 rows, k_build=48, P=8;
+   and k_query 6000's 1,000 rows with a beam of 6,048 and a ring of 2,144):
+   about half the candidates repeat another column or are already seen,
+   ~10% are -1. Every entry of ``ok`` and ``packed`` must equal the plain
+   version's (0 differing); both timed with CUDA events; the bytes bound and
+   the pairwise form's compare bound beside them.
 4. Main path: ``GGNN(device="cuda")`` builds a 262,144-point graph
    (k_build=48, tau_build=0.5, 2 refinements) over the benchmark's
    synthetic SIFT-like data, derives the fused index, computes brute-force
@@ -48,7 +59,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    distances must be the exact ones. Prints the device bytes of the row
    layout (graph + f32 base) beside the fused index's. The kernel must not
    launch: the row walk gathers f32 rows. The graph route must equal the
-   eager route at the operating point. Then k_query=6000 (the reference's
+   eager route at the operating point. The dedup kernel (fused with the
+   compaction) must launch. Then the row call at the operating point with
+   the dedup kernel and with the plain dedup (``plain_dedup``): ms per
+   call and one profile each, the dedup's share before and after. Then
+   k_query=6000 (the reference's
    bound) on the same graph: one fused and one row call for 1,000 queries
    through graphs (pop budget 2,000; the first call captures, the second is
    timed), rows sorted without duplicates, c@1/c@10 of the first 10
@@ -83,8 +98,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    peak device memory. Then the first walk chunk of that input (the pass's
    own chunk size and pops per step, its request buffer as it starts) runs
    under ``torch.profiler`` on the default route: its device busy ms and
-   share, its top 5 kernels by device time and its host syncs; and once
-   through graphs, for the bytes of its program's pool.
+   share, its top 5 kernels by device time and its host syncs, with the
+   dedup kernel and again with the plain dedup; and once through graphs,
+   for the bytes of its program's pool. The dedup kernel must launch in the
+   build (alone in the merges, fused with the compaction in the sym walks)
+   and in the layer-0 pass's two runs.
 9. Shards out of core: 1,048,576 points (the JAX benchmark's 1M headline
    scale) as 4 shards of 262,144 on the one card, with at most 2 shards on
    the device (``set_max_device_shards(2)``) and a ``set_cpu_memory_limit``
@@ -143,17 +161,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    call at the operating point under ``torch.profiler`` (as in phase 4)
    and the kernel against its plain version on that call's real anchors.
 14. The ``nvidia-smi`` name and power-limit line again, then one JSON line
-   with the kernel's numbers (its bound: the bytes it must
+   with the kernels' numbers: ``adjacency_dot`` (its bound: the bytes it must
    move -- each block a live anchor names read once, the query rows and
    anchors read once, each live output lane written once -- at the H100's
    3.35 TB/s, against 2 flops per code at 67 TFLOP/s f32; the share of it
    reached; the int4, group-2 and real-anchor numbers; launches per path;
-   the resources and the I2F count of phase 2),
+   the resources and the I2F count of phase 2), ``beam_dedup`` and
+   ``beam_dedup_compact`` (phase 3b's numbers at every shape, the bytes
+   bound -- each input read once, each output written once -- and the
+   pairwise compares at 33.5 T/s beside it; launches per path),
    then the last line ``{"ok": true, "device": {...}}``.
 
-Every phase prints its seconds. Kernel launch counts are set to 0 just
-before each path runs and read just after it. A failure prints its
-traceback to stdout and the script exits 1 without a result line.
+Every phase prints its seconds. Every kernel's launch counts are set to 0
+just before each path runs and read just after it (launches inside CUDA
+graphs count once per replay); the dedup kernel must launch on every path
+that walks (phases 4-10, 12, 13). A failure prints its traceback to stdout
+and the script exits 1 without a result line.
 """
 
 import functools
@@ -166,6 +189,7 @@ import sys
 import tempfile
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
@@ -182,7 +206,8 @@ from ggnn_torch import ggnn as ggnn_mod
 from ggnn_torch.build import construction
 from ggnn_torch.build import sym as sym_mod
 from ggnn_torch.native import merge as native_merge
-from ggnn_torch.ops import adjacency
+from ggnn_torch.ops import adjacency, beam
+from ggnn_torch.ops import traverse as traverse_mod
 from ggnn_torch.parallel import merge_over_devices
 from ggnn_torch.query import fused as fused_mod
 from ggnn_torch.query.ann import ann_query
@@ -217,6 +242,21 @@ N_HEADLINE, NQ_HEADLINE = 1_000_000, 50_000
 MIX = (1000, 3000, 777, 5000, 10000, 1500, 4096, 2500, 8192, 300)
 # the H100's published peaks (SXM, 700 W): HBM bytes/s and f32 FLOP/s
 HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
+# 32-bit compares a second on the CUDA cores: the f32 rate counts an FMA as
+# two operations, so one 32-bit operation per lane per clock is half of it
+COMPARE_S = F32_FLOP_S / 2
+# the dedup kernel's check shapes, each walk's step at k_build=48, P=8
+# (ggnn_torch/config.py geometry): (label, rows, candidates K, beam W,
+# ring V, compaction cap or None for the dedup alone)
+DEDUP_SHAPES = [
+    ("fused query step", 8192, 32, 32, 32, None),
+    ("quantized merge step", 8192, 96, 96, 160, None),
+    ("row query step", 8192, 384, 64, 192, 288),
+    ("f32 merge step", 8192, 384, 96, 160, 192),
+    ("sym walk step", 8192, 384, 64, 64, 192),
+    (f"k_query {KQ_MAX} fused step", NQ_KQ, 384, 6048, 2144, None),
+    (f"k_query {KQ_MAX} row step", NQ_KQ, 384, 6048, 2144, 288),
+]
 
 
 def time_ms(fn, device, reps=10, warmup=2):
@@ -316,6 +356,112 @@ def measure_kernel(device, qs, anchors, blocks, nibbles, label):
             "bound_share": bound_ms / ms, "bytes": nbytes}
 
 
+def dedup_inputs(device, B, K, W, V, with_valid, seed=0):
+    """Inputs of the dedup at one walk's step shape: a beam of W ids (~10%
+    empty), a ring of V (~30% empty), and K candidates per row of which
+    about a quarter repeat another column of the row, a quarter are taken
+    from the beam or the ring and ~10% are -1; with ``with_valid`` a mask
+    per anchor's group of K/8 columns, ~10% of them off, as a walk's pops
+    give it."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def ids(shape, empty):
+        t = torch.randint(0, N, shape, generator=gen, device=device,
+                          dtype=torch.int32)
+        return torch.where(torch.rand(shape, generator=gen, device=device) < empty,
+                           -1, t)
+
+    i, vis = ids((B, W), 0.1), ids((B, V), 0.3)
+    cand = ids((B, K), 0.0)
+    col = torch.arange(K, device=device).expand(B, K)
+    u = torch.rand((B, K), generator=gen, device=device)
+    other = torch.randint(0, K, (B, K), generator=gen, device=device)
+    cand = torch.gather(cand, 1, torch.where(u < 0.25, other, col))
+    seen = torch.cat([i, vis], dim=1)
+    pick = torch.randint(0, W + V, (B, K), generator=gen, device=device)
+    cand = torch.where((u >= 0.25) & (u < 0.5), torch.gather(seen, 1, pick), cand)
+    cand = torch.where(torch.rand((B, K), generator=gen, device=device) < 0.1,
+                       -1, cand).contiguous()
+    valid = None
+    if with_valid:
+        groups = torch.rand((B, 8), generator=gen, device=device) >= 0.1
+        valid = groups.repeat_interleave(-(-K // 8), dim=1)[:, :K].contiguous()
+    st = beam.beam_init(B, W, 0.0, V, device=device)._replace(i=i, vis=vis)
+    return st, cand, valid
+
+
+def dedup_bound(B, K, W, V, cap, with_valid):
+    """The least time the card could take for one dedup call: each input
+    read once (candidates, ``valid``, beam and ring ids) and each output
+    written once (``ok``, the packed ids) at 3.35 TB/s; beside it the
+    compares of the pairwise form, K*(K-1)/2 + K*(W+V) a row, at
+    ``COMPARE_S``. Returns (bytes, compares, bound ms, compare ms)."""
+    nbytes = B * (K * 4 + (K if with_valid else 0) + (W + V) * 4 + K
+                  + (min(cap, K) * 4 if cap is not None else 0))
+    compares = B * (K * (K - 1) // 2 + K * (W + V))
+    return (nbytes, compares, nbytes / HBM_BYTES_S * 1e3,
+            compares / COMPARE_S * 1e3)
+
+
+def measure_dedup(device, label, B, K, W, V, cap):
+    """The dedup kernel (with ``cap``: fused with the compaction) against
+    its plain version at one shape: the entries of ``ok`` and ``packed``
+    that differ (must be 0), both timed with CUDA events, the bound."""
+    with_valid = cap is not None
+    st, cand, valid = dedup_inputs(device, B, K, W, V, with_valid)
+    want = beam.beam_dedup_mask_plain(st, cand, valid)
+    if cap is None:
+        def run():
+            return beam.beam_dedup_mask(st, cand, valid), None
+
+        def plain():
+            return beam.beam_dedup_mask_plain(st, cand, valid)
+        want_packed = None
+    else:
+        def run():
+            return beam.beam_dedup_compact(st, cand, valid, cap)
+
+        def plain():
+            ok = beam.beam_dedup_mask_plain(st, cand, valid)
+            return beam.beam_compact_candidates_plain(cand, ok, cap)
+        want_packed = beam.beam_compact_candidates_plain(cand, want, cap)
+    ok, packed = run()
+    _sync(device)
+    differ = int((ok != want).sum())
+    if want_packed is not None:
+        differ += int((packed != want_packed).sum())
+    kept = float(want.float().mean())
+    if differ:
+        raise AssertionError(f"beam dedup ({label}) differs from its plain "
+                             f"version in {differ} entries")
+    ms, _ = time_ms(run, device)
+    plain_ms, _ = time_ms(plain, device)
+    nbytes, compares, bound_ms, compare_ms = dedup_bound(B, K, W, V, cap,
+                                                         with_valid)
+    what = f"with compaction to {cap}" if cap is not None else "alone"
+    print(f"beam dedup {label} ({what}) B={B} K={K} W={W} V={V}: kept "
+          f"{kept:.3f} | differing entries "
+          f"{differ} | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound "
+          f"{bound_ms:.4f} ms ({nbytes} B at 3.35 TB/s) | pairwise compares "
+          f"{compares}: {compare_ms:.4f} ms at {COMPARE_S / 1e12:.1f} T/s | "
+          f"share of bound {bound_ms / ms:.3f}", flush=True)
+    return {"max_abs_err": 0, "differing": differ, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_share": bound_ms / ms, "bytes": nbytes,
+            "compares": compares, "compare_bound_ms": compare_ms,
+            "kept": kept}
+
+
+def check_dedup(device, shapes=DEDUP_SHAPES):
+    """Phase 3b: the dedup kernel against its plain version at every walk's
+    step shape. Returns {label: numbers}."""
+    out = {}
+    for label, B, K, W, V, cap in shapes:
+        out[label] = measure_dedup(device, label, B, K, W, V, cap)
+        torch.cuda.empty_cache()
+    return out
+
+
 def fused_call(g, query_dev, point, route=None, k=K_QUERY):
     """One fused query of shard 0 at ``point`` with the smoke's knobs, as
     ``GGNN.query`` makes it, through ``route`` (None: CUDA graphs on the
@@ -368,6 +514,48 @@ def eager_walks():
         yield
     finally:
         ggnn_mod.fused_query, ggnn_mod.ann_query = fused, row
+
+
+def _dedup_compact_plain(state, cand_i, valid, cap):
+    ok = beam.beam_dedup_mask_plain(state, cand_i, valid)
+    return ok, beam.beam_compact_candidates_plain(cand_i, ok, cap)
+
+
+@contextmanager
+def plain_dedup():
+    """While inside, the walks dedup (and compact) with the plain versions
+    in place of the kernel: the dedup's share of a call, before and after,
+    on one card in one run. Every walk program is released on entry and on
+    exit, so that no graph captured on one side replays on the other."""
+    swaps = [(traverse_mod, "beam_dedup_mask", beam.beam_dedup_mask_plain),
+             (traverse_mod, "beam_dedup_compact", _dedup_compact_plain),
+             (sym_mod, "beam_dedup_compact", _dedup_compact_plain),
+             (fused_mod, "beam_dedup_mask", beam.beam_dedup_mask_plain)]
+    kept = [(m, name, getattr(m, name)) for m, name, _ in swaps]
+    graphs.clear()
+    for m, name, fn in swaps:
+        setattr(m, name, fn)
+    try:
+        yield
+    finally:
+        for m, name, fn in kept:
+            setattr(m, name, fn)
+        graphs.clear()
+
+
+def dedup_before_after(device, label, call, reps=3):
+    """``call()`` with the dedup kernel and with the plain dedup
+    (:func:`plain_dedup`): the ms per call of each (CUDA events, after one
+    warm-up) and one profile of each. Returns both."""
+    out = {}
+    for side in ("kernel", "plain"):
+        with plain_dedup() if side == "plain" else nullcontext():
+            ms, _ = time_ms(call, device, reps=reps, warmup=1)
+            out[side] = {"ms": ms, "profile": profile_call(
+                device, call, f"{label} ({side} dedup)")}
+    print(f"{label}: ms per call with the dedup kernel {out['kernel']['ms']:.3f}, "
+          f"with the plain dedup {out['plain']['ms']:.3f}", flush=True)
+    return out
 
 
 def batch_mix(device, g, query_dev, point):
@@ -443,9 +631,9 @@ def profile_call(device, fn, label, tiles=1):
     """One call of ``fn`` (after one warm-up) under ``torch.profiler``: its
     host-clock ms under the profiler, the ms in which the card ran a kernel
     or a copy (the union of their spans in the trace), its kernel count, the
-    5 kernels (by name) with the most device ms, the adjacency kernel's
-    launches and device ms -- what tells a slower call's host from its
-    device -- and its host syncs per query tile (the trace's
+    5 kernels (by name) with the most device ms, the adjacency and the
+    dedup kernels' launches and device ms -- what tells a slower call's
+    host from its device -- and its host syncs per query tile (the trace's
     ``aten::_local_scalar_dense`` events, a tensor read on the host, and
     the walks' live-count reads), with the graphs captured so far and the
     bytes of their pools. None on the CPU rehearsal, which has no device
@@ -478,11 +666,13 @@ def profile_call(device, fn, label, tiles=1):
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     adj = [e["dur"] for e in kernels if e["name"].startswith("adjacency_dot")]
+    dedup = [e["dur"] for e in kernels if "beam_dedup_kernel" in e["name"]]
     syncs = sum(1 for e in events if e.get("name") == "aten::_local_scalar_dense")
     st = graphs.stats()
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
            "busy_share": busy_us / 1e3 / wall_ms, "kernels": len(kernels),
            "adjacency_launches": len(adj), "adjacency_ms": sum(adj) / 1e3,
+           "dedup_launches": len(dedup), "dedup_ms": sum(dedup) / 1e3,
            "host_syncs_per_tile": syncs / tiles,
            "live_reads_per_tile": reads / tiles,
            "graphs_captured": st["captures"], "graphs_cached": st["graphs"],
@@ -492,7 +682,8 @@ def profile_call(device, fn, label, tiles=1):
     print(f"profile of one {label} call: {wall_ms:.3f} ms on the host clock "
           f"under the profiler | device busy {out['device_busy_ms']:.3f} ms "
           f"({out['busy_share']:.3f}) in {len(kernels)} kernels | adjacency "
-          f"kernel {len(adj)} launches, {out['adjacency_ms']:.3f} ms | host "
+          f"kernel {len(adj)} launches, {out['adjacency_ms']:.3f} ms | dedup "
+          f"kernel {len(dedup)} launches, {out['dedup_ms']:.3f} ms | host "
           f"syncs per tile {out['host_syncs_per_tile']:.2f} (live-count reads "
           f"{out['live_reads_per_tile']:.2f}) over {tiles} tiles | graphs "
           f"captured so far {st['captures']}, cached {st['graphs']} in "
@@ -502,17 +693,44 @@ def profile_call(device, fn, label, tiles=1):
     return out
 
 
-def _launched(count, what, device):
+def zero_launches():
+    """Every kernel's launch counts to 0 (just before a path runs)."""
+    adjacency.launches = adjacency.launches_nibbles = 0
+    beam.launches = beam.launches_compact = 0
+
+
+def launches_now():
+    """Every kernel's launches since :func:`zero_launches`: the adjacency
+    kernel's (and those in int4 mode), the dedup kernel's alone and fused
+    with the compaction."""
+    return {"adjacency_dot": adjacency.launches,
+            "adjacency_dot_nibbles": adjacency.launches_nibbles,
+            "beam_dedup": beam.launches - beam.launches_compact,
+            "beam_dedup_compact": beam.launches_compact}
+
+
+def _minus(a, b):
+    return {k: a[k] - b[k] for k in a}
+
+
+def _launched(count, what, device, kernel="the adjacency kernel"):
     """The kernel must have launched (on the card; the CPU rehearsal runs
     the plain version, which counts nothing)."""
     if device.type == "cuda" and count <= 0:
-        raise AssertionError(f"{what} never launched the adjacency kernel")
+        raise AssertionError(f"{what} never launched {kernel}")
 
 
 def _not_launched(count, what):
     if count != 0:
         raise AssertionError(f"{what} launched the adjacency kernel {count} "
-                             "times; its path runs no kernel")
+                             "times; its path runs no such kernel")
+
+
+def _dedup_launched(counts, what, device, compact=False):
+    """The dedup kernel must have launched in ``counts``: alone, or with
+    ``compact`` fused with the compaction."""
+    key = "beam_dedup_compact" if compact else "beam_dedup"
+    _launched(counts[key], what, device, f"the dedup kernel ({key})")
 
 
 def _check_exact(ids, dists, base, query, measure=DistanceMeasure.Euclidean,
@@ -613,9 +831,10 @@ def main_path(device, n=N, nq=NQ):
     base, query = make_dataset(n, nq, d=D, seed=0)
     g = GGNN(device=device)
     g.set_base(base)
-    adjacency.launches = 0
+    zero_launches()
     build_s = build(g, device, "fused-path")
-    launches_build = adjacency.launches
+    counts_build = launches_now()
+    launches_build = counts_build["adjacency_dot"]
     t0 = time.perf_counter()
     g.build_fused_index(group=1)
     print(f"fused index: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -623,11 +842,14 @@ def main_path(device, n=N, nq=NQ):
     query_dev = torch.from_numpy(query).to(device)
     best = sweep(g, query_dev, base, query, evaluator, SWEEP, QKW, device,
                  "fused")
-    launches_total = adjacency.launches
+    counts_queries = _minus(launches_now(), counts_build)
+    launches_total = launches_build + counts_queries["adjacency_dot"]
     _launched(launches_build, "the build", device)
-    _launched(launches_total - launches_build, "the fused queries", device)
+    _launched(counts_queries["adjacency_dot"], "the fused queries", device)
+    _dedup_launched(counts_build, "the build", device)
+    _dedup_launched(counts_queries, "the fused queries", device)
     print(f"operating point: {json.dumps(best)} | kernel launches: build "
-          f"{launches_build}, queries {launches_total - launches_build}",
+          f"{json.dumps(counts_build)}, queries {json.dumps(counts_queries)}",
           flush=True)
     print(f"graphs captured by the build: "
           f"{g.last_build_stats['shards'][0]['graphs_captured']}", flush=True)
@@ -640,6 +862,7 @@ def main_path(device, n=N, nq=NQ):
         tiles=-(-nq // 8192))
     mix = batch_mix(device, g, query_dev, best)
     summary = {"launches": launches_total, "build_s": build_s, "bf_s": bf_s,
+               "counts": {"build": counts_build, "queries": counts_queries},
                "real": real, "profile": profile, "graph_vs_eager": identity,
                "batch_mix": mix,
                "graphs_captured_build":
@@ -661,16 +884,21 @@ def row_path(device, ctx):
           f"({row_bytes / n:.1f} B/point) | fused index {fused_bytes} "
           f"({fused_bytes / n:.1f} B/point; the fused engine also keeps the "
           "base for its re-rank)", flush=True)
-    adjacency.launches = 0
+    zero_launches()
     best = sweep(g, ctx["query_dev"], ctx["base"], ctx["query"],
                  ctx["evaluator"], ROW_SWEEP, ROW_KW, device, "row",
                  reps=3, warmup=1)
-    _not_launched(adjacency.launches, "the row queries")
-    print(f"row operating point: {json.dumps(best)}", flush=True)
+    counts = launches_now()
+    _not_launched(counts["adjacency_dot"], "the row queries")
+    _dedup_launched(counts, "the row queries", device, compact=True)
+    print(f"row operating point: {json.dumps(best)} | kernel launches "
+          f"{json.dumps(counts)}", flush=True)
     identity = graph_vs_eager(device, "row", lambda r: row_call(
         g, ctx["query_dev"], best, r))
+    dedup = dedup_before_after(device, "row query call",
+                               lambda: row_call(g, ctx["query_dev"], best))
     return {**best, "row_bytes": row_bytes, "fused_bytes": fused_bytes,
-            "graph_vs_eager": identity}
+            "graph_vs_eager": identity, "counts": counts, "dedup": dedup}
 
 
 def _check_rows(ids, dists, label):
@@ -702,10 +930,11 @@ def kquery_path(device, ctx):
                                engine="fused", pops_per_iter=p["P"])),
             ("row", {"tau": 0.64, "iters": KQ_BUDGET, "P": ROW_KW["pops_per_iter"]},
              lambda p: g.query(query_dev, KQ_MAX, p["tau"], p["iters"], **ROW_KW))):
-        adjacency.launches = 0
+        zero_launches()
         captures = graphs.stats()["captures"]
         ms, res = time_ms(lambda: call(point), device, reps=1, warmup=1)
-        launches = adjacency.launches
+        counts = launches_now()
+        launches = counts["adjacency_dot"]
         ids, dists = res.ids, res.dists
         if ids.shape != (NQ_KQ, KQ_MAX):
             raise AssertionError(f"k_query {KQ_MAX} {label}: shape {ids.shape}")
@@ -714,7 +943,7 @@ def kquery_path(device, ctx):
         filled = float(np.mean(ids >= 0))
         st = graphs.stats()
         out[label] = {"ms": ms, "c1": ev.c1, "c10": ev.cKQuery, "filled": filled,
-                      "launches": launches,
+                      "launches": launches, "counts": counts,
                       "graphs_captured": st["captures"] - captures,
                       "graph_pool_bytes": graphs.pool_bytes(),
                       "graph_buffer_bytes": st["buffer_bytes"]}
@@ -723,32 +952,38 @@ def kquery_path(device, ctx):
               f"c@1 {ev.c1:.4f} c@10 {ev.cKQuery:.4f} of the first 10 | slots "
               f"filled {filled:.4f} | graphs captured {out[label]['graphs_captured']}"
               f" | pools {out[label]['graph_pool_bytes']} B, static buffers "
-              f"{st['buffer_bytes']} B | kernel launches {launches}", flush=True)
+              f"{st['buffer_bytes']} B | kernel launches {json.dumps(counts)}",
+              flush=True)
     _launched(out["fused"]["launches"], f"the k_query {KQ_MAX} fused call", device)
     _not_launched(out["row"]["launches"], f"the k_query {KQ_MAX} row call")
+    _dedup_launched(out["fused"]["counts"], f"the k_query {KQ_MAX} fused call",
+                    device)
+    _dedup_launched(out["row"]["counts"], f"the k_query {KQ_MAX} row call",
+                    device, compact=True)
     return out
 
 
 def other_build(device, label, n, nq, start, **build_kw):
     """Build ``n`` points with ``build_kw``, then the row sweep from sweep
-    point ``start`` on. Returns (kernel launches in the build, summary with
-    the build's peak device memory, the shard's build stats)."""
+    point ``start`` on. Returns (kernel launches in the build, by kernel;
+    summary with the build's peak device memory; the shard's build
+    stats)."""
     base, query = make_dataset(n, nq, d=D, seed=0)
     g = GGNN(device=device)
     g.set_base(base)
-    adjacency.launches = 0
+    zero_launches()
     peak = peak_memory(device)
     build_s = build(g, device, label, **build_kw)
     build_peak = peak()
-    launches = adjacency.launches
+    counts = launches_now()
     evaluator, _ = ground_truth(g, base, query)
     query_dev = torch.from_numpy(query).to(device)
     best = sweep(g, query_dev, base, query, evaluator, ROW_SWEEP[start:],
                  ROW_KW, device, f"{label} row", reps=3, warmup=1)
     print(f"{label}: {json.dumps(best)} | kernel launches in the build "
-          f"{launches} | build peak device memory {json.dumps(build_peak)}",
-          flush=True)
-    return (launches, {"build_s": build_s, "build_peak": build_peak, **best},
+          f"{json.dumps(counts)} | build peak device memory "
+          f"{json.dumps(build_peak)}", flush=True)
+    return (counts, {"build_s": build_s, "build_peak": build_peak, **best},
             g.last_build_stats["shards"][0])
 
 
@@ -850,9 +1085,10 @@ def descent_path(device, n=N_DESCENT, nq=NQ):
     the sym passes' seconds per layer, live-count reads and captures, the
     last layer-0 sym pass again through both routes with their peak device
     memory, and one walk chunk of it under the profiler. Returns (kernel
-    launches in the build, summary)."""
+    launches in the build by kernel, summary with the launches of the
+    layer-0 pass's two runs)."""
     with last_layer0_sym() as recorded:
-        launches, out, stats = other_build(
+        counts, out, stats = other_build(
             device, "descent+walk", n, nq, 0, dense_seed_merge=False,
             sym_mode="walk")
     passes = stats["sym"]
@@ -876,8 +1112,12 @@ def descent_path(device, n=N_DESCENT, nq=NQ):
 
     # the last layer-0 pass again, on its own input, through both routes
     args, kw = recorded["args"], recorded["kw"]
+    zero_launches()
     (want, want_st, eager_s, eager_mem), (got, got_st, graph_s, graph_mem) = \
         sym_routes(device, args, kw, (graphs.EAGER, graphs.GRAPHS))
+    sym_counts = launches_now()
+    _dedup_launched(sym_counts, "the layer-0 sym pass (walk)", device,
+                    compact=True)
     rows = int(torch.any(got != want, dim=1).sum())
     keys = [k for k in want_st if not k.startswith("walk_")] + ["walk_rows"]
     same = all(got_st[k] == want_st[k] for k in keys)
@@ -898,19 +1138,24 @@ def descent_path(device, n=N_DESCENT, nq=NQ):
         "eager_s": eager_s, "live_reads_graphs": got_st["walk_live_reads"],
         "live_reads_eager": want_st["walk_live_reads"],
         "graphs_captured": got_st["walk_graphs_captured"],
-        "peak_memory_graphs": graph_mem, "peak_memory_eager": eager_mem}
+        "peak_memory_graphs": graph_mem, "peak_memory_eager": eager_mem,
+        "launches": sym_counts}
     del want, got
 
     chunk, pairs, _ = walk_chunk(device, args, kw)
     out["sym"]["chunk_profile"] = profile_call(
         device, chunk, f"sym walk chunk ({pairs} pairs, per-step loop)")
+    with plain_dedup():
+        out["sym"]["chunk_profile_plain_dedup"] = profile_call(
+            device, chunk, f"sym walk chunk ({pairs} pairs, per-step loop, "
+            "plain dedup)")
     chunk, _, reads = walk_chunk(device, args, kw, graphs.GRAPHS)
     chunk()
     out["sym"]["chunk_pool_bytes"] = graphs.pool_bytes()
     print(f"sym walk chunk: {pairs} pairs | its program's pool through graphs "
           f"{out['sym']['chunk_pool_bytes']} B", flush=True)
     graphs.drop(*reads)
-    return launches, out
+    return counts, out
 
 
 def _sync(device):
@@ -936,12 +1181,14 @@ def layouts_path(device, ctx):
             raise AssertionError(f"{label}: the index has group {index.group}, "
                                  f"bits {index.bits}")
         per_point = _nbytes(index) / n
-        adjacency.launches = adjacency.launches_nibbles = 0
+        zero_launches()
         best = sweep(g, ctx["query_dev"], ctx["base"], ctx["query"],
                      ctx["evaluator"], SWEEP, QKW, device, f"fused {label}",
                      reps=3, warmup=1)
-        launches, nibbles = adjacency.launches, adjacency.launches_nibbles
+        counts = launches_now()
+        launches, nibbles = counts["adjacency_dot"], counts["adjacency_dot_nibbles"]
         _launched(launches, f"the {label} fused queries", device)
+        _dedup_launched(counts, f"the {label} fused queries", device)
         want = launches if label == "int4" else 0
         if device.type == "cuda" and nibbles != want:
             raise AssertionError(f"{label}: {nibbles} of {launches} launches in "
@@ -954,7 +1201,8 @@ def layouts_path(device, ctx):
         real = kernel_on_real_anchors(device, g, ctx["query_dev"], best, label)
         out[label] = {**best, "index_s": index_s, "bytes_per_point": per_point,
                       "launches": launches, "launches_nibbles": nibbles,
-                      "real": real, "graph_vs_eager": identity}
+                      "counts": counts, "real": real,
+                      "graph_vs_eager": identity}
     return out
 
 
@@ -976,12 +1224,13 @@ def shards_path(device, n=N_SHARDED, n_shard=N_SHARD, nq=NQ):
         # shard's cache goes over the cap and spills
         cap = int(1.5 * (cfg.graph_size_bytes() + n_shard * 4 + 4096))
         g.set_cpu_memory_limit(cap)
-        adjacency.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         g.build(k_build=K_BUILD, tau_build=TAU_BUILD, refinement_iterations=2)
         build_s = time.perf_counter() - t0
         per_shard = [round(s["build_time_s"], 3) for s in g.last_build_stats["shards"]]
-        launches_build = adjacency.launches
+        counts_build = launches_now()
+        launches_build = counts_build["adjacency_dot"]
         print(f"sharded build: {build_s:.2f} s for N={n} as {g.num_shards} x "
               f"{n_shard} (per shard {per_shard} s) | host cap {cap} B | "
               f"kernel launches {launches_build}", flush=True)
@@ -991,15 +1240,18 @@ def shards_path(device, n=N_SHARDED, n_shard=N_SHARD, nq=NQ):
         print(f"sharded fused index: {index_s:.2f} s", flush=True)
         evaluator, bf_s = ground_truth(g, base, query)
         query_dev = torch.from_numpy(query).to(device)
-        adjacency.launches = 0
+        zero_launches()
         before = dict(g.tier_stats)
         t0 = time.perf_counter()
         best = sweep(g, query_dev, base, query, evaluator, SWEEP, QKW, device,
                      "sharded fused", reps=3, warmup=1)
         sweep_s = time.perf_counter() - t0
-        launches_query = adjacency.launches
+        counts_query = launches_now()
+        launches_query = counts_query["adjacency_dot"]
         _launched(launches_build, "the sharded build", device)
         _launched(launches_query, "the sharded fused queries", device)
+        _dedup_launched(counts_build, "the sharded build", device)
+        _dedup_launched(counts_query, "the sharded fused queries", device)
         stats = dict(g.tier_stats)
         in_sweep = {k: stats[k] - before[k] for k in stats}
         print(f"tier moves: whole run {json.dumps(stats)} | in the sweep "
@@ -1073,7 +1325,8 @@ def shards_path(device, n=N_SHARDED, n_shard=N_SHARD, nq=NQ):
             "index_s": index_s, "bf_s": bf_s, "store_s": store_s,
             "load_s": load_s, "tier_stats": stats, "tier_stats_sweep": in_sweep,
             "sweep_s": sweep_s, "rotated_routes": routes,
-            "launches_build": launches_build, "launches_query": launches_query}
+            "launches_build": launches_build, "launches_query": launches_query,
+            "counts": {"build": counts_build, "queries": counts_query}}
 
 
 def devices_path(device, n=N_DEVICES, nq=NQ):
@@ -1086,12 +1339,13 @@ def devices_path(device, n=N_DEVICES, nq=NQ):
     g = GGNN(device=device)
     g.set_devices([device] * SLOTS)
     g.set_base(base)
-    adjacency.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     g.build(k_build=K_BUILD, tau_build=TAU_BUILD, refinement_iterations=2)
     build_s = time.perf_counter() - t0
     stats = g.last_build_stats
-    launches_build = adjacency.launches
+    counts_build = launches_now()
+    launches_build = counts_build["adjacency_dot"]
     per_shard = [s["build_time_s"] for s in stats["shards"]]
     print(f"devices build: {g.num_shards} x {n // g.num_shards} on slots "
           f"{[str(d) for d in g.devices]} | workers {stats['num_build_workers']} "
@@ -1122,7 +1376,7 @@ def devices_path(device, n=N_DEVICES, nq=NQ):
     print(f"devices fused index {index_s:.2f} s | ground truth identical "
           "through the device and the host merge", flush=True)
     query_dev = torch.from_numpy(query).to(device)
-    adjacency.launches = 0
+    zero_launches()
     best = sweep(g, query_dev, base, query, evaluator, SWEEP, QKW, device,
                  "devices fused", reps=3, warmup=1)
     if g.last_merge_route != "devices":
@@ -1146,9 +1400,12 @@ def devices_path(device, n=N_DEVICES, nq=NQ):
     if not (np.array_equal(async_host, on_device)
             and np.array_equal(async_dev, on_device)):
         raise AssertionError("query_async ids differ from query's")
-    launches_query = adjacency.launches
+    counts_query = launches_now()
+    launches_query = counts_query["adjacency_dot"]
     _launched(launches_build, "the two-slot build", device)
     _launched(launches_query, "the two-slot queries", device)
+    _dedup_launched(counts_build, "the two-slot build", device)
+    _dedup_launched(counts_query, "the two-slot queries", device)
     # the merges alone, on one call's partials (global ids, one per shard)
     g.set_device_merge(False)
     partials = g._query_partials(query_dev, *args, None, "fused",
@@ -1172,6 +1429,7 @@ def devices_path(device, n=N_DEVICES, nq=NQ):
             "bf_s": bf_s, "device_merge_ms": device_merge_ms,
             "host_merge_ms": host_merge_ms, "host_route_ms": host_ms,
             "launches_build": launches_build, "launches_query": launches_query,
+            "counts": {"build": counts_build, "queries": counts_query},
             "graphs_captured_build": captured}
 
 
@@ -1241,13 +1499,14 @@ def measures_path(device, n=N_MEASURES, nq=NQ):
         b, q = np.asarray(b), np.asarray(q)
         g = GGNN(device=device)
         g.set_base(b)
-        adjacency.launches = 0
+        zero_launches()
         build_s = build(g, device, label, measure=measure)
-        launches_build = adjacency.launches
+        counts_build = launches_now()
+        launches_build = counts_build["adjacency_dot"]
         g.build_fused_index()
         evaluator, _ = ground_truth(g, b, q, measure)
         query_dev = torch.from_numpy(q).to(device)
-        adjacency.launches = 0
+        zero_launches()
         res = {"build_s": build_s, "launches_build": launches_build,
                "graphs_captured_build":
                    g.last_build_stats["shards"][0]["graphs_captured"]}
@@ -1255,18 +1514,25 @@ def measures_path(device, n=N_MEASURES, nq=NQ):
                      f"{label} fused", reps=3, warmup=1, measure=measure)
         res["fused"] = {**best, "graph_vs_eager": graph_vs_eager(
             device, f"{label} fused", lambda r: fused_call(g, query_dev, best, r))}
-        res["launches_queries"] = adjacency.launches
+        counts_queries = launches_now()
+        res["launches_queries"] = counts_queries["adjacency_dot"]
+        res["counts"] = {"build": counts_build, "fused_queries": counts_queries}
         if label == "uint8":
-            adjacency.launches = 0
+            zero_launches()
             best = sweep(g, query_dev, b, q, evaluator, ROW_SWEEP, ROW_KW, device,
                          f"{label} row", reps=3, warmup=1, measure=measure)
-            _not_launched(adjacency.launches, f"the {label} row queries")
+            res["counts"]["row_queries"] = counts = launches_now()
+            _not_launched(counts["adjacency_dot"], f"the {label} row queries")
+            _dedup_launched(counts, f"the {label} row queries", device,
+                            compact=True)
         else:
             best = {"tau": 0.5, "iters": 64, "P": ROW_KW["pops_per_iter"]}
         res["row"] = {**best, "graph_vs_eager": graph_vs_eager(
             device, f"{label} row", lambda r: row_call(g, query_dev, best, r))}
         _launched(launches_build, f"the {label} build", device)
         _launched(res["launches_queries"], f"the {label} fused queries", device)
+        _dedup_launched(counts_build, f"the {label} build", device)
+        _dedup_launched(counts_queries, f"the {label} fused queries", device)
         print(f"{label}: {json.dumps(res)}", flush=True)
         g.close()
         out[label] = res
@@ -1281,11 +1547,12 @@ def headline_path(device, n=N_HEADLINE, nq=NQ_HEADLINE):
     ground truth's distances on 16 sampled rows must be the exact ones.
     Returns (the result, its stats without the data)."""
     stats = {}
-    adjacency.launches = 0
+    zero_launches()
     result = bench_torch.run(n=n, nq=nq, k_build=K_BUILD, group=1, device=device,
                              cache=None, warm_build=False, curve=False,
                              stats=stats)
-    launches = adjacency.launches
+    counts = launches_now()
+    launches = counts["adjacency_dot"]
     print(f"headline: {json.dumps(result)}", flush=True)
     base, query = stats.pop("base"), stats.pop("query")
     gt_ids, gt_dists = stats.pop("gt_ids"), stats.pop("gt_dists")
@@ -1304,7 +1571,9 @@ def headline_path(device, n=N_HEADLINE, nq=NQ_HEADLINE):
           f"{stats['base_bytes_per_point']} | peak device memory by stage "
           f"{json.dumps(peaks)}, over the run {json.dumps(peak)} | kernel "
           f"launches: build {stats['launches_build']}, queries "
-          f"{stats['launches_queries']}", flush=True)
+          f"{stats['launches_queries']} | dedup kernel launches: build "
+          f"{stats['dedup_launches_build']}, queries "
+          f"{stats['dedup_launches_queries']}", flush=True)
     for p in stats["points"]:
         print(f"headline query tau={p['tau']} iters={p['iters']} P={p['P']}: "
               f"c@1={p['c1']:.4f} c@10={p['c10']:.4f} qps={p['qps']:.1f}",
@@ -1315,7 +1584,14 @@ def headline_path(device, n=N_HEADLINE, nq=NQ_HEADLINE):
             raise AssertionError(f"headline: no sweep point reached c@1 >= {TARGET_C1}")
         _launched(stats["launches_build"], "the headline build", device)
         _launched(stats["launches_queries"], "the headline queries", device)
-        if stats["launches_build"] + stats["launches_queries"] != launches:
+        _launched(stats["dedup_launches_build"], "the headline build", device,
+                  "the dedup kernel")
+        _launched(stats["dedup_launches_queries"], "the headline queries",
+                  device, "the dedup kernel")
+        dedup = counts["beam_dedup"] + counts["beam_dedup_compact"]
+        if (stats["launches_build"] + stats["launches_queries"] != launches
+                or stats["dedup_launches_build"]
+                + stats["dedup_launches_queries"] != dedup):
             raise AssertionError("headline: kernel launches outside the build and "
                                  "the queries")
         # the operating point once more, under the profiler, and the kernel on
@@ -1332,7 +1608,7 @@ def headline_path(device, n=N_HEADLINE, nq=NQ_HEADLINE):
                                                "headline")
     finally:
         g.close()
-    return result, dict(stats, peak_memory_run=peak)
+    return result, dict(stats, peak_memory_run=peak, counts=counts)
 
 
 def released_check(device, allocated):
@@ -1371,27 +1647,34 @@ def run(device):
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     t0 = _phase("device", t0)
 
-    build_s = adjacency.build_kernel()
-    print(f"kernel build: {build_s:.2f} s | library {adjacency.library_path()}",
-          flush=True)
+    # both kernels' sources compile at once, one nvcc each
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(m.build_kernel) for m in (adjacency, beam)]
+        build_s = [f.result() for f in builds]
+    print(f"kernel build: {build_s[0]:.2f} s | library {adjacency.library_path()}"
+          f" | dedup kernel build {build_s[1]:.2f} s | library "
+          f"{beam.library_path()}", flush=True)
     # registers, shared and local (spill) bytes per kernel, and the I2F
     # count of its SASS, from the toolkit's cuobjdump
-    resources, i2f = adjacency.kernel_resources(), "not available"
-    if resources is None:
-        resources = "not available"
-    else:
-        resources = {k: {f: r[f] for f in ("REG", "SHARED", "LOCAL", "STACK", "I2F")
-                         if f in r} for k, r in resources.items()}
-        i2f = sum(r.get("I2F", 0) for r in resources.values())
+    resources = {}
+    for label, m in (("adjacency_dot", adjacency), ("beam_dedup", beam)):
+        res = m.kernel_resources()
+        resources[label] = "not available" if res is None else {
+            k: {f: r[f] for f in ("REG", "SHARED", "LOCAL", "STACK", "I2F")
+                if f in r} for k, r in res.items()}
+    i2f = ("not available" if resources["adjacency_dot"] == "not available"
+           else sum(r.get("I2F", 0) for r in resources["adjacency_dot"].values()))
     print(f"kernel resources (cuobjdump -res-usage; LOCAL holds spills): "
-          f"{json.dumps(resources)} | I2F instructions in the SASS "
-          f"(cuobjdump -sass): {i2f}", flush=True)
+          f"{json.dumps(resources)} | I2F instructions in the adjacency "
+          f"kernels' SASS (cuobjdump -sass): {i2f}", flush=True)
     t0 = _phase("kernel build", t0)
     u8 = check_kernel(device, False, 48)
     int4 = check_kernel(device, True, 24)
     group2 = check_kernel(device, False, 96, Nb=N // 2)
     torch.cuda.empty_cache()
     t0 = _phase("kernel vs plain", t0)
+    dedup = check_dedup(device)
+    t0 = _phase("dedup kernel vs plain", t0)
 
     allocated = torch.cuda.memory_allocated(device)
     summary, ctx = main_path(device)
@@ -1405,13 +1688,18 @@ def run(device):
     released = released_check(device, allocated)
     t0 = _phase("group-2, group-4 and int4 layouts + fused sweeps", t0)
     start = ROW_SWEEP.index((row["tau"], row["iters"]))
-    launches, f32, _ = other_build(device, "f32-fetch", N, NQ, start,
-                                   quantized_fetch=False)
-    _not_launched(launches, "the f32-fetch build")
+    f32_counts, f32, _ = other_build(device, "f32-fetch", N, NQ, start,
+                                     quantized_fetch=False)
+    _not_launched(f32_counts["adjacency_dot"], "the f32-fetch build")
+    _dedup_launched(f32_counts, "the f32-fetch build", device, compact=True)
     torch.cuda.empty_cache()
     t0 = _phase("f32-fetch build + row sweep", t0)
-    launches_descent, descent = descent_path(device)
-    _launched(launches_descent, "the descent build's quantized legs", device)
+    descent_counts, descent = descent_path(device)
+    _launched(descent_counts["adjacency_dot"], "the descent build's quantized "
+              "legs", device)
+    _dedup_launched(descent_counts, "the descent build's merges", device)
+    _dedup_launched(descent_counts, "the descent build's sym walks", device,
+                    compact=True)
     torch.cuda.empty_cache()
     t0 = _phase("descent build + row sweep", t0)
     sharded = shards_path(device)
@@ -1445,38 +1733,48 @@ def run(device):
             k: v for k, v in headline_stats.items() if k != "real"}},
     }), flush=True)
 
-    per_path = {
-        "fused_path": summary["launches"],
-        "group2_queries": layouts["group2"]["launches"],
-        "group4_queries": layouts["group4"]["launches"],
-        "int4_queries": layouts["int4"]["launches"],
-        "int4_queries_nibbles": layouts["int4"]["launches_nibbles"],
-        "descent_build": launches_descent,
-        "sharded_build": sharded["launches_build"],
-        "sharded_queries": sharded["launches_query"],
-        "devices_build": devices["launches_build"],
-        "devices_queries": devices["launches_query"],
-        "kquery_fused": kquery["fused"]["launches"],
-        "cosine_build": measures["cosine"]["launches_build"],
-        "cosine_queries": measures["cosine"]["launches_queries"],
-        "uint8_build": measures["uint8"]["launches_build"],
-        "uint8_queries": measures["uint8"]["launches_queries"],
-        "headline_build": headline_stats["launches_build"],
-        "headline_queries": headline_stats["launches_queries"],
-        "row_queries": 0, "f32_fetch_build": 0, "kquery_row": 0,
+    # every kernel's launches per path (each path's counts set to 0 just
+    # before it and read just after; the headline's over its build and
+    # queries)
+    paths = {
+        "fused_build": summary["counts"]["build"],
+        "fused_queries": summary["counts"]["queries"],
+        "row_queries": row["counts"],
+        "kquery_fused": kquery["fused"]["counts"],
+        "kquery_row": kquery["row"]["counts"],
+        **{f"{k}_queries": layouts[k]["counts"] for k in ("group2", "group4", "int4")},
+        "f32_fetch_build": f32_counts,
+        "descent_build": descent_counts,
+        "descent_layer0_sym_pass": descent["sym"]["layer0_pass"]["launches"],
+        "sharded_build": sharded["counts"]["build"],
+        "sharded_queries": sharded["counts"]["queries"],
+        "devices_build": devices["counts"]["build"],
+        "devices_queries": devices["counts"]["queries"],
+        "cosine_build": measures["cosine"]["counts"]["build"],
+        "cosine_queries": measures["cosine"]["counts"]["fused_queries"],
+        "uint8_build": measures["uint8"]["counts"]["build"],
+        "uint8_queries": measures["uint8"]["counts"]["fused_queries"],
+        "uint8_row_queries": measures["uint8"]["counts"]["row_queries"],
+        "headline": headline_stats["counts"],
     }
 
-    def numbers(r):
-        return {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                  "bound_by", "bound_share", "bytes")}
+    def per_path(kernel):
+        return {p: c[kernel] for p, c in paths.items()}
 
+    def numbers(r, extra=()):
+        return {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                  "bound_by", "bound_share", "bytes", *extra)}
+
+    adj_paths = dict(per_path("adjacency_dot"),
+                     int4_queries_nibbles=layouts["int4"]["launches_nibbles"],
+                     headline_build=headline_stats["launches_build"],
+                     headline_queries=headline_stats["launches_queries"])
     kernels = [{
         "name": "adjacency_dot",
         "route": "cuda",
         "source": "ggnn_torch/csrc/adjacency_dot.cu",
         "replaces": "ggnn_tpu/ops/adjacency_pallas.py:156",
-        "launches": sum(v for k, v in per_path.items()
-                        if k != "int4_queries_nibbles"),
+        "launches": sum(per_path("adjacency_dot").values()),
         **numbers(u8),
         # no single PyTorch call computes the gather + per-row dot
         "library_ms": None,
@@ -1487,10 +1785,36 @@ def run(device):
                          "group4": numbers(layouts["group4"]["real"]),
                          "int4": numbers(layouts["int4"]["real"]),
                          "headline": numbers(headline_stats["real"])},
-        "launches_per_path": per_path,
-        "resources": resources,
+        "launches_per_path": adj_paths,
+        "resources": resources["adjacency_dot"],
         "i2f": i2f,
     }]
+    # the dedup's two entry points, each at its callers' step shapes; the
+    # top-level numbers at the shape of the build merges' steps (the
+    # headline's) and of the row query's step. No single PyTorch call
+    # computes them: ``torch.isin`` tests against one flat set, not a set
+    # per row, and nothing drops a row's repeats in place
+    extra = ("compares", "compare_bound_ms", "differing")
+    for name, main_shape, compact in (
+            ("beam_dedup", "quantized merge step", False),
+            ("beam_dedup_compact", "row query step", True)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "ggnn_torch/csrc/beam_dedup.cu",
+            # no Pallas kernel: the XLA fusion of beam_dedup_mask (and of
+            # beam_compact_candidates after it)
+            "replaces": ("ggnn_tpu/ops/beam.py:112, :141" if compact
+                         else "ggnn_tpu/ops/beam.py:112"),
+            "launches": sum(per_path(name).values()),
+            **numbers(dedup[main_shape], extra),
+            "library_ms": None,
+            "shapes": {label: numbers(dedup[label], extra)
+                       for label, *_, cap in DEDUP_SHAPES
+                       if (cap is not None) == compact},
+            "launches_per_path": per_path(name),
+            "resources": resources["beam_dedup"],
+        })
     # the card's line again beside the numbers, should the head of the log
     # be cut
     print(smi[0], flush=True)

@@ -42,8 +42,7 @@ from ggnn_torch.config import (
 )
 from ggnn_torch.ops.beam import (
     BeamState,
-    beam_compact_candidates,
-    beam_dedup_mask,
+    beam_dedup_compact,
     beam_init,
     beam_insert,
     beam_pop,
@@ -156,8 +155,7 @@ def _sym_walk(n, start, nbrs, sym_buffer, translation_l, base, base_sq, xi,
         connected = connected | found
         live = active & ~found
         # dedup on ids BEFORE the vector gather, pack left
-        ok = beam_dedup_mask(st, cand, valid=a_ok & live[:, None])
-        packed = beam_compact_candidates(cand, ok, cap_now)
+        _, packed = beam_dedup_compact(st, cand, a_ok & live[:, None], cap_now)
         cb = tr(packed.clamp_min(0))
         dq, dh = _pair_dists(q, h, q_sq, h_sq, base[cb].to(torch.float32),
                              base_sq[cb], measure)

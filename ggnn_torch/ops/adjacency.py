@@ -8,28 +8,22 @@ CPU tensor it runs :func:`adjacency_dot_plain`, the gather + einsum version
 that is also the kernel's oracle. There is no other route.
 
 The kernel is compiled with ``nvcc`` at first use and bound through ctypes
-(a plain C entry point, so the build takes seconds). The library is named
-by a hash of the source and the nvcc flags, in ``build/kernels/`` under the
-repository root or in ``$GGNN_TORCH_CACHE`` (``ggnn_torch/utils/cache.py``):
-a library built from another source is never loaded.
+(a plain C entry point, so the build takes seconds; ``utils/nvcc.py``). The
+library is named by a hash of the source and the nvcc flags, in
+``build/kernels/`` under the repository root or in ``$GGNN_TORCH_CACHE``
+(``ggnn_torch/utils/cache.py``): a library built from another source is
+never loaded.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import re
-import shutil
-import subprocess
-import tempfile
 import threading
-import time
 from pathlib import Path
 
 import torch
 
-from ggnn_torch.utils import graphs
-from ggnn_torch.utils.cache import keyed_library
+from ggnn_torch.utils import graphs, nvcc
 
 __all__ = [
     "adjacency_dot",
@@ -43,10 +37,10 @@ __all__ = [
 ]
 
 KERNEL_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "adjacency_dot.cu"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+# the shared build (``utils/nvcc.py``), under the names this module had
+_compile = nvcc.compile_library
+parse_res_usage = nvcc.parse_res_usage
+count_opcodes = nvcc.count_opcodes
 
 # kernel launches made by adjacency_dot (the plain CPU route does not count):
 # all of them, and those in int4 ``nibbles`` mode; updated under
@@ -79,57 +73,17 @@ def adjacency_dot_plain(qs: torch.Tensor, anchors: torch.Tensor,
     return torch.einsum("bd,bpkd->bpk", q, craw.to(torch.float32))
 
 
-def _nvcc() -> str:
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and (Path(root) / "bin" / "nvcc").is_file():
-            return str(Path(root) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                           f"{KERNEL_SOURCE.name}")
-    return found
-
-
-def _compile(source: Path, target: Path) -> float:
-    """Compile ``source`` into the shared library ``target``. Returns the
-    seconds it took."""
-    target.parent.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    # build beside the target and rename: concurrent builders never load a
-    # half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(source)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode:
-            raise RuntimeError(
-                f"nvcc failed on {source} ({proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return time.perf_counter() - t0
-
-
 def library_path(source: Path = KERNEL_SOURCE) -> Path:
     """The shared library of ``source``: named by the hash of its bytes and
     the nvcc flags, in the cache directory."""
-    return keyed_library("adjacency_dot", source, _NVCC_FLAGS)
+    return nvcc.library_path("adjacency_dot", source)
 
 
 def build_kernel() -> float:
     """Compile the kernel's shared library unless the library of this
     source and these flags exists. Returns the seconds the build took (0.0
     when it was there)."""
-    target = library_path()
-    if target.is_file():
-        return 0.0
-    return _compile(KERNEL_SOURCE, target)
+    return nvcc.build("adjacency_dot", KERNEL_SOURCE)
 
 
 def _bind(path: Path):
@@ -151,59 +105,12 @@ def _load():
     return _launch_fn
 
 
-def parse_res_usage(text: str) -> dict:
-    """``cuobjdump -res-usage`` output -> {kernel: {"REG": n, "SHARED": n,
-    "LOCAL": n, ...}} (LOCAL: local memory per thread, where spills go)."""
-    out, name = {}, None
-    for line in text.splitlines():
-        m = re.match(r"\s*Function\s+(\S+?):?\s*$", line)
-        if m:
-            name = m.group(1)
-        elif name is not None and "REG:" in line:
-            out[name] = {k: int(v) for k, v in
-                         re.findall(r"([A-Z_]+(?:\[\d+\])?):(\d+)", line)}
-            name = None
-    return out
-
-
-def count_opcodes(sass: str, prefix: str) -> dict:
-    """SASS instructions (``cuobjdump -sass``) whose opcode starts with
-    ``prefix``, per kernel."""
-    out, name = {}, None
-    for line in sass.splitlines():
-        m = re.match(r"\s*Function\s*:\s*(\S+)", line)
-        if m:
-            name = m.group(1)
-            out[name] = 0
-            continue
-        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-                     line)
-        if m and name is not None and m.group(1).startswith(prefix):
-            out[name] += 1
-    return out
-
-
 def kernel_resources(lib_path: Path | None = None):
     """Registers, shared and local (spill) bytes of each kernel in a built
     library (by default this source's) and its count of int -> float
-    conversions (``I2F*``) in the SASS, read with the ``cuobjdump`` beside
-    ``nvcc``; None where that tool is missing."""
-    lib_path = library_path() if lib_path is None else lib_path
-    try:
-        tool = Path(_nvcc()).parent / "cuobjdump"
-    except RuntimeError:
-        return None
-    if not tool.is_file():
-        return None
-
-    def run(flag):
-        return subprocess.run([str(tool), flag, str(lib_path)], capture_output=True,
-                              text=True, check=True).stdout
-
-    kernels = parse_res_usage(run("-res-usage"))
-    for name, n in count_opcodes(run("-sass"), "I2F").items():
-        kernels.setdefault(name, {})["I2F"] = n
-    return kernels
+    conversions (``I2F*``) in the SASS; None where ``cuobjdump`` is
+    missing."""
+    return nvcc.kernel_resources(library_path() if lib_path is None else lib_path)
 
 
 def _check(qs, anchors, blocks):

@@ -27,22 +27,35 @@ id-only visited ring:
 records them in the ring; ``beam_insert`` is one sorted merge. Rows converge
 independently via masks; the caller's loop ends when every row's pop comes up
 empty (the batched equivalent of the reference's per-block ``break``).
+
+The id dedup of every walk step, and on the row and sym walks the dedup
+fused with the compaction of the survivors, run as a hand-written Hopper
+kernel on CUDA tensors (:func:`beam_dedup_mask`, :func:`beam_dedup_compact`;
+``csrc/beam_dedup.cu``, built by ``utils/nvcc.py`` at first use); CPU
+tensors take the plain versions :func:`beam_dedup_mask_plain` and
+:func:`beam_compact_candidates_plain`, which are also the kernel's oracle.
 """
 
 from __future__ import annotations
 
+import ctypes
+import threading
+from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
 from ggnn_torch.config import DistanceMeasure
+from ggnn_torch.utils import graphs, nvcc
 
 __all__ = [
     "BeamState",
     "Slack",
     "beam_init",
     "beam_dedup_mask",
-    "beam_compact_candidates",
+    "beam_dedup_mask_plain",
+    "beam_dedup_compact",
+    "beam_compact_candidates_plain",
     "beam_insert",
     "beam_pop",
     "beam_transform",
@@ -50,6 +63,21 @@ __all__ = [
 
 EMPTY_ID = -1
 EMPTY_DIST = float("inf")
+
+KERNEL_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "beam_dedup.cu"
+# shared memory a block may use on an H100 (227 KB, opted in above 48 KB)
+MAX_SHARED_BYTES = 232_448
+
+# launches of the dedup kernel (the plain CPU route does not count): all of
+# them, and those that also compact; updated under ``_count_lock``, and a
+# launch captured into a CUDA graph counts once per replay of that graph
+# (``graphs.count_launch``), as ``ops/adjacency.py`` counts its kernel
+launches = 0
+launches_compact = 0
+
+_launch_fns = None
+_lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 class BeamState(NamedTuple):
@@ -120,12 +148,13 @@ def beam_init(
     )
 
 
-def beam_dedup_mask(
+def beam_dedup_mask_plain(
     state: BeamState,
     cand_i: torch.Tensor,
     valid: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Which candidates are new to the beam (the id-only part of ``fetch``).
+    """Which candidates are new to the beam (the id-only part of ``fetch``):
+    the plain version of the dedup kernel.
 
     Mirrors simple_knn_cache.cuh:126-146 & 241-261: drop a candidate already
     present in the beam or the visited ring, or earlier in this same tile.
@@ -145,8 +174,10 @@ def beam_dedup_mask(
     return ok
 
 
-def beam_compact_candidates(cand_i: torch.Tensor, ok: torch.Tensor, cap: int):
-    """Pack the surviving candidates left and truncate to ``cap`` columns.
+def beam_compact_candidates_plain(cand_i: torch.Tensor, ok: torch.Tensor,
+                                  cap: int):
+    """Pack the surviving candidates left and truncate to ``cap`` columns:
+    the plain version of the compaction that the dedup kernel fuses.
 
     Graph walks re-encounter most neighbour ids, so after dedup typically
     less than half a tile survives; compacting before the vector gather
@@ -159,6 +190,172 @@ def beam_compact_candidates(cand_i: torch.Tensor, ok: torch.Tensor, cap: int):
     packed = torch.gather(cand_i, -1, order[:, :cap])
     col = torch.arange(cap, device=cand_i.device)[None, :]
     return torch.where(col < ok.sum(dim=-1, keepdim=True), packed, EMPTY_ID)
+
+
+def library_path() -> Path:
+    """The dedup kernel's shared library: named by the hash of its source
+    and the nvcc flags, in the cache directory (``utils/nvcc.py``)."""
+    return nvcc.library_path("beam_dedup", KERNEL_SOURCE)
+
+
+def build_kernel() -> float:
+    """Compile the dedup kernel's library unless the library of this source
+    and these flags exists. Returns the seconds the build took (0.0 when it
+    was there)."""
+    return nvcc.build("beam_dedup", KERNEL_SOURCE)
+
+
+def kernel_resources():
+    """Registers, shared and local (spill) bytes of the built dedup
+    kernels; None where ``cuobjdump`` is missing."""
+    return nvcc.kernel_resources(library_path())
+
+
+def _bind(path: Path):
+    """The C entry points (``beam_dedup_launch``,
+    ``beam_dedup_compact_launch``) of a built library."""
+    lib = ctypes.CDLL(str(path))
+    ptr, ld, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    inputs = [ptr, ld] * 4  # cand, valid, beam ids, ring: pointer, row stride
+    mask = lib.beam_dedup_launch
+    mask.argtypes = inputs + [ptr] + [i32] * 4 + [ptr]
+    compact = lib.beam_dedup_compact_launch
+    compact.argtypes = inputs + [ptr, ptr] + [i32] * 5 + [ptr]
+    mask.restype = compact.restype = ctypes.c_int
+    return mask, compact
+
+
+def _load():
+    global _launch_fns
+    with _lib_lock:
+        if _launch_fns is None:
+            build_kernel()
+            _launch_fns = _bind(library_path())
+    return _launch_fns
+
+
+def shared_bytes(K: int, W: int, V: int, compact: bool) -> int:
+    """Dynamic shared memory of one row's block: the seen ids and the
+    candidates, each padded to a multiple of 4, and for the compaction a
+    ballot and an offset per 32 columns (``csrc/beam_dedup.cu``)."""
+    nchunk = -(-K // 32)
+    return 16 * (-(-(W + V) // 4) + -(-K // 4)) + (
+        4 * (2 * nchunk + 1) if compact else 0)
+
+
+def _rows(t: torch.Tensor, name: str) -> int:
+    """The row stride of a [B, n] tensor whose rows are contiguous."""
+    if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1):
+        raise ValueError(f"beam dedup kernel: {name} must be [B, n] with "
+                         f"contiguous rows, got shape {tuple(t.shape)} "
+                         f"strides {t.stride()}")
+    return t.stride(0)
+
+
+def _check(state: BeamState, cand_i, valid):
+    devs = {t.device for t in (state.i, state.vis, cand_i)}
+    if valid is not None:
+        devs.add(valid.device)
+    if len(devs) != 1:
+        raise ValueError(f"beam dedup: inputs on several devices {devs}")
+    B = cand_i.shape[0]
+    if cand_i.dim() != 2 or state.i.shape[0] != B or state.vis.shape[0] != B:
+        raise ValueError(f"beam dedup: candidates {tuple(cand_i.shape)} against "
+                         f"beam {tuple(state.i.shape)}, ring {tuple(state.vis.shape)}")
+    if valid is not None and valid.shape != cand_i.shape:
+        raise ValueError(f"beam dedup: valid {tuple(valid.shape)} against "
+                         f"candidates {tuple(cand_i.shape)}")
+    return devs.pop()
+
+
+def _launch(state: BeamState, cand_i, valid, cap):
+    """The kernel on CUDA tensors: ok [B, K] and, with ``cap``, packed
+    [B, min(cap, K)]."""
+    for t, name in ((cand_i, "candidates"), (state.i, "beam ids"),
+                    (state.vis, "ring")):
+        if t.dtype != torch.int32:
+            raise ValueError(f"beam dedup kernel: {name} must be int32, got {t.dtype}")
+    if valid is not None and valid.dtype != torch.bool:
+        raise ValueError(f"beam dedup kernel: valid must be bool, got {valid.dtype}")
+    B, K = cand_i.shape
+    W, V = state.i.shape[1], state.vis.shape[1]
+    compact = cap is not None
+    smem = shared_bytes(K, W, V, compact)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"beam dedup kernel: K={K}, W={W}, V={V} need {smem} B "
+                         f"of shared memory a block, above {MAX_SHARED_BYTES}")
+    strides = [_rows(cand_i, "candidates"), _rows(state.i, "beam ids"),
+               _rows(state.vis, "ring")]
+    ld_valid = 0 if valid is None else _rows(valid, "valid")
+    dev = cand_i.device
+    ok = torch.empty((B, K), dtype=torch.bool, device=dev)
+    packed = (torch.empty((B, min(cap, K)), dtype=torch.int32, device=dev)
+              if compact else None)
+    if B == 0 or K == 0:
+        return ok, packed
+    mask_fn, compact_fn = _load()
+    args = [cand_i.data_ptr(), strides[0],
+            None if valid is None else valid.data_ptr(), ld_valid,
+            state.i.data_ptr(), strides[1], state.vis.data_ptr(), strides[2]]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if compact:
+            err = compact_fn(*args, ok.data_ptr(), packed.data_ptr(), B, K, W,
+                             V, int(cap), stream)
+        else:
+            err = mask_fn(*args, ok.data_ptr(), B, K, W, V, stream)
+    if err:
+        raise RuntimeError(f"beam dedup kernel launch failed: CUDA error {err}")
+    graphs.count_launch(_count, compact)
+    return ok, packed
+
+
+def _count(compact: bool) -> None:
+    global launches, launches_compact
+    with _count_lock:
+        launches += 1
+        launches_compact += compact
+
+
+def beam_dedup_mask(
+    state: BeamState,
+    cand_i: torch.Tensor,
+    valid: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Which candidates are new to the beam: [B, K] bool, True where
+    ``cand_i`` is not EMPTY, passes ``valid``, differs from every earlier
+    candidate of its row and is in neither the beam nor the visited ring.
+
+    CPU tensors take :func:`beam_dedup_mask_plain`; CUDA tensors launch the
+    kernel (``csrc/beam_dedup.cu``), which needs int32 ids, a bool
+    ``valid`` and rows with contiguous elements; another device raises.
+    """
+    dev = _check(state, cand_i, valid)
+    if dev.type == "cpu":
+        return beam_dedup_mask_plain(state, cand_i, valid)
+    if dev.type != "cuda":
+        raise ValueError(f"beam_dedup_mask: unsupported device {dev}")
+    return _launch(state, cand_i, valid, None)[0]
+
+
+def beam_dedup_compact(
+    state: BeamState,
+    cand_i: torch.Tensor,
+    valid: torch.Tensor | None,
+    cap: int,
+):
+    """The dedup and the compaction in one pass: (ok [B, K] bool as
+    :func:`beam_dedup_mask`, the surviving ids packed left in column order
+    [B, min(cap, K)] i32 with EMPTY padding, as
+    :func:`beam_compact_candidates_plain`). Dispatch as
+    :func:`beam_dedup_mask`."""
+    dev = _check(state, cand_i, valid)
+    if dev.type == "cpu":
+        ok = beam_dedup_mask_plain(state, cand_i, valid)
+        return ok, beam_compact_candidates_plain(cand_i, ok, cap)
+    if dev.type != "cuda":
+        raise ValueError(f"beam_dedup_compact: unsupported device {dev}")
+    return _launch(state, cand_i, valid, cap)
 
 
 def beam_insert(

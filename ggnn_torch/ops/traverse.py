@@ -22,7 +22,7 @@ from ggnn_torch.config import DistanceMeasure
 from ggnn_torch.ops.beam import (
     BeamState,
     Slack,
-    beam_compact_candidates,
+    beam_dedup_compact,
     beam_dedup_mask,
     beam_insert,
     beam_pop,
@@ -144,9 +144,8 @@ def best_first_search(
         B = anchors.shape[0]
         nbrs = nbr_table[anchors.clamp_min(0).long()].reshape(B, P * K)
         valid = (anchors != -1)[:, :, None].expand(B, P, K).reshape(B, P * K)
-        # dedup on ids BEFORE fetching vectors, then compact the survivors
-        ok = beam_dedup_mask(st, nbrs, valid)
-        cand = beam_compact_candidates(nbrs, ok, cap_now)
+        # dedup on ids BEFORE fetching vectors, and compact the survivors
+        _, cand = beam_dedup_compact(st, nbrs, valid, cap_now)
         d, _ = gather_dists(c[0], c[1], cand, base, base_sq, translation,
                             measure)
         st = beam_insert(st, cand, d, row_mask=active,
