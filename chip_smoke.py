@@ -29,8 +29,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    and k_query 6000's 1,000 rows with a beam of 6,048 and a ring of 2,144):
    about half the candidates repeat another column or are already seen,
    ~10% are -1. Every entry of ``ok`` and ``packed`` must equal the plain
-   version's (0 differing); both timed with CUDA events; the bytes bound and
-   the pairwise form's compare bound beside them.
+   version's (0 differing). The kernel's device time is read from a CUDA
+   graph of ``DEDUP_LAUNCHES`` captured launches, replayed between CUDA
+   events (as the walks run it: no host path per launch); beside it the
+   host path's ms (CUDA events around Python calls of the wrapper), the
+   plain version's ms, the bytes bound, the rows (warps) per block, the
+   shared bytes per block and the kernel's registers and spills.
 4. Main path: ``GGNN(device="cuda")`` builds a 262,144-point graph
    (k_build=48, tau_build=0.5, 2 refinements) over the benchmark's
    synthetic SIFT-like data, derives the fused index, computes brute-force
@@ -168,8 +172,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    reached; the int4, group-2 and real-anchor numbers; launches per path;
    the resources and the I2F count of phase 2), ``beam_dedup`` and
    ``beam_dedup_compact`` (phase 3b's numbers at every shape, the bytes
-   bound -- each input read once, each output written once -- and the
-   pairwise compares at 33.5 T/s beside it; launches per path),
+   bound -- each input read once, each output written once; launches per
+   path),
    then the last line ``{"ok": true, "device": {...}}``.
 
 Every phase prints its seconds. Every kernel's launch counts are set to 0
@@ -242,9 +246,9 @@ N_HEADLINE, NQ_HEADLINE = 1_000_000, 50_000
 MIX = (1000, 3000, 777, 5000, 10000, 1500, 4096, 2500, 8192, 300)
 # the H100's published peaks (SXM, 700 W): HBM bytes/s and f32 FLOP/s
 HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
-# 32-bit compares a second on the CUDA cores: the f32 rate counts an FMA as
-# two operations, so one 32-bit operation per lane per clock is half of it
-COMPARE_S = F32_FLOP_S / 2
+# launches of the dedup kernel captured into the CUDA graph that phase 3b
+# replays to read its device time
+DEDUP_LAUNCHES = 20
 # the dedup kernel's check shapes, each walk's step at k_build=48, P=8
 # (ggnn_torch/config.py geometry): (label, rows, candidates K, beam W,
 # ring V, compaction cap or None for the dedup alone)
@@ -393,20 +397,53 @@ def dedup_inputs(device, B, K, W, V, with_valid, seed=0):
 def dedup_bound(B, K, W, V, cap, with_valid):
     """The least time the card could take for one dedup call: each input
     read once (candidates, ``valid``, beam and ring ids) and each output
-    written once (``ok``, the packed ids) at 3.35 TB/s; beside it the
-    compares of the pairwise form, K*(K-1)/2 + K*(W+V) a row, at
-    ``COMPARE_S``. Returns (bytes, compares, bound ms, compare ms)."""
+    written once (``ok``, the packed ids) at 3.35 TB/s. Returns (bytes,
+    bound ms)."""
     nbytes = B * (K * 4 + (K if with_valid else 0) + (W + V) * 4 + K
                   + (min(cap, K) * 4 if cap is not None else 0))
-    compares = B * (K * (K - 1) // 2 + K * (W + V))
-    return (nbytes, compares, nbytes / HBM_BYTES_S * 1e3,
-            compares / COMPARE_S * 1e3)
+    return nbytes, nbytes / HBM_BYTES_S * 1e3
 
 
-def measure_dedup(device, label, B, K, W, V, cap):
+def replay_ms(fn, device, launches=DEDUP_LAUNCHES, reps=10):
+    """Device ms per call of ``fn``: ``launches`` calls captured into one
+    CUDA graph (after a warm-up call on a side stream, outside the capture),
+    replayed ``reps`` times between CUDA events -- the way the walks run a
+    kernel, without the host's path per call. On the CPU (rehearsals at a
+    tiny size) the calls' host clock, as :func:`time_ms`."""
+    if device.type != "cuda":
+        return time_ms(fn, device)[0]
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    ms, _ = time_ms(graph.replay, device, reps=reps, warmup=1)
+    del graph
+    return ms / launches
+
+
+def dedup_resources(res, compact, K):
+    """Registers, local (spill) and static shared bytes of the dedup
+    kernel that a launch at K runs, alone or fused with the compaction,
+    from ``res`` (``beam.kernel_resources()``: ``cuobjdump -res-usage``;
+    None where the toolkit lacks it), or "not available"."""
+    # the template arguments <compact, register chunks>, mangled
+    tag = f"ILb{int(compact)}ELi{beam.register_chunks(K)}EE"
+    return next(({f: r[f] for f in ("REG", "SHARED", "LOCAL", "STACK") if f in r}
+                 for name, r in (res or {}).items() if tag in name),
+                "not available")
+
+
+def measure_dedup(device, label, B, K, W, V, cap, resources=None):
     """The dedup kernel (with ``cap``: fused with the compaction) against
     its plain version at one shape: the entries of ``ok`` and ``packed``
-    that differ (must be 0), both timed with CUDA events, the bound."""
+    that differ (must be 0); the kernel's device ms (:func:`replay_ms`) and
+    its host path's, the plain version's ms, the bound, the launch's rows
+    per block and shared bytes per block and the kernel's ``resources``."""
     with_valid = cap is not None
     st, cand, valid = dedup_inputs(device, B, K, W, V, with_valid)
     want = beam.beam_dedup_mask_plain(st, cand, valid)
@@ -434,30 +471,36 @@ def measure_dedup(device, label, B, K, W, V, cap):
     if differ:
         raise AssertionError(f"beam dedup ({label}) differs from its plain "
                              f"version in {differ} entries")
-    ms, _ = time_ms(run, device)
+    ms = replay_ms(run, device)
+    host_ms, _ = time_ms(run, device)
     plain_ms, _ = time_ms(plain, device)
-    nbytes, compares, bound_ms, compare_ms = dedup_bound(B, K, W, V, cap,
-                                                         with_valid)
+    nbytes, bound_ms = dedup_bound(B, K, W, V, cap, with_valid)
     what = f"with compaction to {cap}" if cap is not None else "alone"
+    rows, smem = beam.rows_per_block(K, W, V), beam.shared_bytes(K, W, V)
+    timing = (f"device: a CUDA graph of {DEDUP_LAUNCHES} launches"
+              if device.type == "cuda" else "host clock, CPU")
     print(f"beam dedup {label} ({what}) B={B} K={K} W={W} V={V}: kept "
-          f"{kept:.3f} | differing entries "
-          f"{differ} | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound "
-          f"{bound_ms:.4f} ms ({nbytes} B at 3.35 TB/s) | pairwise compares "
-          f"{compares}: {compare_ms:.4f} ms at {COMPARE_S / 1e12:.1f} T/s | "
-          f"share of bound {bound_ms / ms:.3f}", flush=True)
+          f"{kept:.3f} | differing entries {differ} | kernel {ms:.4f} ms "
+          f"({timing}) | host path "
+          f"{host_ms:.4f} ms | plain {plain_ms:.4f} ms | bound {bound_ms:.4f} "
+          f"ms ({nbytes} B at 3.35 TB/s) | share of bound {bound_ms / ms:.3f} "
+          f"| rows per block {rows}, shared bytes per block {smem} | resources "
+          f"{json.dumps(resources)}", flush=True)
     return {"max_abs_err": 0, "differing": differ, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "bound_share": bound_ms / ms, "bytes": nbytes,
-            "compares": compares, "compare_bound_ms": compare_ms,
-            "kept": kept}
+            "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "bound_share": bound_ms / ms, "bytes": nbytes,
+            "rows_per_block": rows, "shared_bytes": smem,
+            "resources": resources, "kept": kept}
 
 
 def check_dedup(device, shapes=DEDUP_SHAPES):
     """Phase 3b: the dedup kernel against its plain version at every walk's
     step shape. Returns {label: numbers}."""
     out = {}
+    res = beam.kernel_resources()
     for label, B, K, W, V, cap in shapes:
-        out[label] = measure_dedup(device, label, B, K, W, V, cap)
+        out[label] = measure_dedup(device, label, B, K, W, V, cap,
+                                   dedup_resources(res, cap is not None, K))
         torch.cuda.empty_cache()
     return out
 
@@ -1794,7 +1837,7 @@ def run(device):
     # headline's) and of the row query's step. No single PyTorch call
     # computes them: ``torch.isin`` tests against one flat set, not a set
     # per row, and nothing drops a row's repeats in place
-    extra = ("compares", "compare_bound_ms", "differing")
+    extra = ("host_ms", "rows_per_block", "shared_bytes", "differing")
     for name, main_shape, compact in (
             ("beam_dedup", "quantized merge step", False),
             ("beam_dedup_compact", "row query step", True)):

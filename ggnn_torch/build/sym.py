@@ -98,9 +98,10 @@ def _sym_walk(n, start, nbrs, sym_buffer, translation_l, base, base_sq, xi,
     ``best + xi`` and fetches their KL local links plus their KF requested
     inverse links (``sym_buffer``, read in place: the requests of the
     chunks walked before); a row is connected once a fetched candidate is n
-    itself. The first step runs uncapped and eagerly: the beam holds only
-    the start point, so nearly every candidate survives dedup. The rest run
-    through :func:`graphs.run_steps`, as the JAX package's
+    itself. The first step runs uncapped: the beam holds only the start
+    point, so nearly every candidate survives dedup. It and the rest run
+    through :func:`graphs.run_steps` (two programs on the graph route), as
+    the JAX package's
     ``lax.while_loop`` does: by default (``route``) the per-step loop, one
     live-count read per step, on the card too; ``graphs.GRAPHS`` replays
     CUDA graphs of ``graphs.STEPS_PER_REPLAY`` steps, bit for bit the same.
@@ -167,16 +168,23 @@ def _sym_walk(n, start, nbrs, sym_buffer, translation_l, base, base_sq, xi,
     # degenerate self-link rows (and padding rows) resolve immediately
     carry = _WalkCarry(*state, start == n)
     consts = (q, h, q_sq, h_sq, criteria_half, n)
+    live = torch.ones((R,), dtype=torch.bool, device=dev)
+    name = ("sym", int(measure), P, KL, KF, cap, translation_l is not None)
+    reads = (nbrs, sym_buffer, translation_l, base, base_sq)
+    # a chunk's steps make GBs of intermediates: on the graph route the
+    # pool takes what the eager warm-up left cached (fresh_pool)
+    kw = dict(live_n=R, floor=0, route=graphs.Route(route), reads=reads,
+              fresh_pool=True)
     remaining = steps
     if cap < P * KC:
-        carry, _ = step(carry, consts, P * KC)
+        # a program of its own on the graph route, whose memory comes from
+        # the walk's pool rather than lying cached beside it
+        carry, *_ = graphs.run_steps(
+            lambda c, k: step(c, k, P * KC), carry, consts, live, it=0,
+            steps=1, name=name + ("uncapped",), **kw)
         remaining = max(0, steps - 1)
-    name = ("sym", int(measure), P, KL, KF, cap, translation_l is not None)
-    carry, *_ = graphs.run_steps(
-        step, carry, consts, torch.ones((R,), dtype=torch.bool, device=dev),
-        it=0, steps=remaining, live_n=R, floor=0,
-        route=graphs.Route(route), name=name,
-        reads=(nbrs, sym_buffer, translation_l, base, base_sq))
+    carry, *_ = graphs.run_steps(step, carry, consts, live, it=0,
+                                 steps=remaining, name=name, **kw)
     return carry.connected, carry.beam.best(KF)[0]
 
 

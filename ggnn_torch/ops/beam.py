@@ -65,8 +65,14 @@ EMPTY_ID = -1
 EMPTY_DIST = float("inf")
 
 KERNEL_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "beam_dedup.cu"
-# shared memory a block may use on an H100 (227 KB, opted in above 48 KB)
+# shared memory a block may use on an H100 (227 KB, opted in above 48 KB):
+# one row's hash table of 2^14 slots at most (K <= 8192; <= 4096 where the
+# table is doubled for a long seen list)
 MAX_SHARED_BYTES = 232_448
+# rows (one warp each) of a kernel block at most, and the shared memory a
+# block aims under (``csrc/beam_dedup.cu``: kMaxWarps, kSmemTarget)
+MAX_ROWS_PER_BLOCK = 8
+SMEM_TARGET = 48 * 1024
 
 # launches of the dedup kernel (the plain CPU route does not count): all of
 # them, and those that also compact; updated under ``_count_lock``, and a
@@ -234,13 +240,35 @@ def _load():
     return _launch_fns
 
 
-def shared_bytes(K: int, W: int, V: int, compact: bool) -> int:
-    """Dynamic shared memory of one row's block: the seen ids and the
-    candidates, each padded to a multiple of 4, and for the compaction a
-    ballot and an offset per 32 columns (``csrc/beam_dedup.cu``)."""
-    nchunk = -(-K // 32)
-    return 16 * (-(-(W + V) // 4) + -(-K // 4)) + (
-        4 * (2 * nchunk + 1) if compact else 0)
+def table_slots(K: int, W: int, V: int) -> int:
+    """Slots of a row's hash table in the kernel, 8 bytes each (an id and
+    its first column): the least power of two >= max(32, 2K), or >= 4K
+    where the row's seen ids (W + V) outnumber 8K."""
+    want = (4 if W + V > 8 * K else 2) * K
+    return 1 << max(5, (want - 1).bit_length())
+
+
+def rows_per_block(K: int, W: int, V: int) -> int:
+    """Rows (one warp each) of a kernel block: ``MAX_ROWS_PER_BLOCK``,
+    halved while the block's tables exceed ``SMEM_TARGET``, at least 1."""
+    r = MAX_ROWS_PER_BLOCK
+    while r > 1 and r * 8 * table_slots(K, W, V) > SMEM_TARGET:
+        r //= 2
+    return r
+
+
+def shared_bytes(K: int, W: int, V: int) -> int:
+    """Dynamic shared memory of a kernel block: a hash table per row,
+    sized by K (doubled for long seen lists); the seen ids are never staged
+    (``csrc/beam_dedup.cu``)."""
+    return rows_per_block(K, W, V) * 8 * table_slots(K, W, V)
+
+
+def register_chunks(K: int) -> int:
+    """32-column chunks of candidates a kernel lane holds in registers, the
+    kernel's template argument: 1 up to K = 32, 3 up to 96, else 12 (K
+    above 384 runs in passes)."""
+    return 1 if K <= 32 else 3 if K <= 96 else 12
 
 
 def _rows(t: torch.Tensor, name: str) -> int:
@@ -280,7 +308,7 @@ def _launch(state: BeamState, cand_i, valid, cap):
     B, K = cand_i.shape
     W, V = state.i.shape[1], state.vis.shape[1]
     compact = cap is not None
-    smem = shared_bytes(K, W, V, compact)
+    smem = shared_bytes(K, W, V)
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"beam dedup kernel: K={K}, W={W}, V={V} need {smem} B "
                          f"of shared memory a block, above {MAX_SHARED_BYTES}")

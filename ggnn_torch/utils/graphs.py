@@ -38,7 +38,22 @@ it are released with it (at once, or -- if that thread was inside this
 module -- at the next walk), and :func:`drop` releases them earlier.
 Programs whose first read tensor is the same share one memory pool and one
 lock, held for a whole walk: their graphs never replay at the same time,
-while two threads walking two shards use two pools. Captures take one
+while two threads walking two shards use two pools. A pool's memory goes
+back to the device (``cudaFree``), as the reference's jitted programs
+leave none behind: once the last program that used it is gone (dropped,
+its read tensor freed, or evicted), its graphs are destroyed and one
+``torch.cuda.empty_cache`` returns its segments -- not while any thread
+captures (then at the next walk or :func:`drop`), and not before the
+dead pools of a device hold more than ``CACHE_SHARE`` of the card
+(counted as the memory each pool took while its graphs were captured):
+emptying the cache costs the eager work after it its allocations again,
+which the build's many small walks would pay for little memory. A walk
+whose step makes intermediates of a large share of the card (the sym
+walk's chunks) asks for ``fresh_pool``: the cache is emptied after the
+eager warm-up step before its pool's first capture, so that the pool
+takes the memory that step left cached, not memory beside it (its
+uncapped first step is a program of its own in the same pool).
+Captures take one
 global lock and the ``thread_local`` capture mode, so that another thread's
 allocations during a capture do not break it; a device-wide synchronise
 (which CUDA refuses while any stream of the device captures) waits for that
@@ -80,6 +95,10 @@ __all__ = [
 STEPS_PER_REPLAY = 4
 # programs kept at once; the least recently used goes first
 MAX_PROGRAMS = 64
+# the share of a card that dead pools may hold before their memory goes
+# back to the device, and that the cache must hold before a fresh pool's
+# first capture empties it
+CACHE_SHARE = 1 / 64
 
 
 class Route(enum.Enum):
@@ -105,9 +124,12 @@ class _Pool:
     lock their walks hold."""
 
     def __init__(self, device: torch.device):
+        self.device = device
         self.handle = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
         self.lock = threading.RLock()
         self.users = 0
+        self.captured = False
+        self.nbytes = 0  # what the allocator reserved while its graphs were captured
 
 
 _lock = threading.Lock()  # guards the tables below
@@ -116,7 +138,8 @@ _programs: OrderedDict = OrderedDict()  # key -> _Program, oldest first
 _pools: dict = {}  # (device, data_ptr) -> _Pool
 _watched: dict = {}  # id(read tensor) -> its (device, data_ptr)
 _dead: deque = deque()  # (device, data_ptr) of read tensors freed since
-_stats = {"captures": 0, "replays": 0, "live_reads": 0}
+_released: list = []  # (device, weak reference, bytes) of unlisted pools
+_stats = {"captures": 0, "replays": 0, "live_reads": 0, "releases": 0}
 _tls = threading.local()
 
 
@@ -195,7 +218,7 @@ class _Program:
     holds neither the step nor the tensors the step reads: the caller
     passes the step to every replay."""
 
-    def __init__(self, carry, consts, live, reads, pool):
+    def __init__(self, carry, consts, live, reads, pool, fresh_pool):
         self.kind = type(carry)
         self.carry = tuple(torch.empty_like(t) for t in carry)
         self.consts = tuple(torch.empty_like(t) for t in consts)
@@ -205,6 +228,7 @@ class _Program:
         self.pool = pool
         self.graphs: dict = {}  # steps -> (CUDAGraph, launches per replay)
         self.warm = False
+        self.fresh_pool = fresh_pool
 
     @property
     def device(self) -> torch.device:
@@ -243,6 +267,15 @@ class _Program:
                     # and workspaces come into being outside the capture
                     step(self.kind(*(t.clone() for t in self.carry)), self.consts)
                     self.warm = True
+                if (self.fresh_pool and not self.pool.captured
+                        and torch.cuda.memory_reserved(dev)
+                        - torch.cuda.memory_allocated(dev) > _share_bytes(dev)):
+                    # what the warm-up step (and the walk's eager work
+                    # before it) freed goes back to the device, for the
+                    # pool to take rather than lie cached beside it
+                    torch.cuda.empty_cache()
+                self.pool.captured = True
+                reserved = torch.cuda.memory_reserved(dev)
                 graph = torch.cuda.CUDAGraph()
                 recorded: list = []
                 _tls.recording = recorded
@@ -257,6 +290,7 @@ class _Program:
                     graph.capture_end()
                 finally:
                     _tls.recording = None
+                self.pool.nbytes += max(0, torch.cuda.memory_reserved(dev) - reserved)
             torch.cuda.current_stream(dev).wait_stream(side)
         self.graphs[n] = (graph, tuple(recorded))
         _tls.captures = thread_captures() + 1
@@ -312,12 +346,16 @@ def _watch(tensors) -> None:
 
 def _forget(doomed) -> int:
     """Unlist the programs ``doomed(program)`` picks and the pools nobody
-    uses any more; they are freed once no walk holds them."""
+    uses any more; they are freed once no walk holds them, and the pools'
+    memory goes back to the device then (:func:`_release`)."""
     with _holding(_lock):
         keys = [k for k, p in _programs.items() if doomed(p)]
         progs = [_programs.pop(k) for k in keys]
         _unpool(progs)
-    return len(progs)
+    n = len(progs)
+    del progs  # the programs, and their graphs, die here unless a walk holds one
+    _release()
+    return n
 
 
 def _unpool(progs) -> None:
@@ -327,18 +365,56 @@ def _unpool(progs) -> None:
             for k, v in list(_pools.items()):
                 if v is p.pool:
                     del _pools[k]
+            if p.pool.captured:
+                _released.append((p.pool.device, weakref.ref(p.pool),
+                                  p.pool.nbytes))
+
+
+def _share_bytes(device) -> float:
+    """``CACHE_SHARE`` of the card's memory."""
+    return CACHE_SHARE * torch.cuda.get_device_properties(device).total_memory
+
+
+def _release() -> None:
+    """Return the segments of unlisted pools to the device: once every
+    program that used such a pool is gone -- its graphs destroyed, which
+    hands the pool back to the allocator -- and the dead pools of a device
+    hold more than ``CACHE_SHARE`` of the card, one ``empty_cache`` frees
+    them all. Not while any thread captures a graph (CUDA refuses it, and
+    the capture breaks), nor inside this module's capture: then the next
+    walk, :func:`drop` or :func:`stats` does it."""
+    dead: dict = {}
+    with _holding(_lock):
+        for d, r, nbytes in _released:
+            if r() is None:
+                dead[d] = dead.get(d, 0) + nbytes
+    if not any(nbytes > _share_bytes(d) for d, nbytes in dead.items()):
+        return
+    if (getattr(_tls, "depth", 0) or torch.cuda.is_current_stream_capturing()
+            or not _capture_lock.acquire(blocking=False)):
+        return
+    try:
+        with _holding(_lock):
+            _released[:] = [e for e in _released if e[1]() is not None]
+            _stats["releases"] += 1
+        torch.cuda.empty_cache()
+    finally:
+        _capture_lock.release()
 
 
 def _reap() -> None:
-    """Release the programs that read tensors freed since the last reap."""
+    """Release the programs that read tensors freed since the last reap,
+    and the memory of pools whose last program has gone since."""
     dead = set()
     while _dead:
         dead.add(_dead.popleft())
     if dead:
         _forget(lambda p: bool(p.reads & dead))
+    else:
+        _release()
 
 
-def _program(name, carry, consts, live, reads):
+def _program(name, carry, consts, live, reads, fresh_pool):
     """The cached program of this key, made if missing."""
     reads = tuple(t for t in reads if t is not None)
     key = _key(name, carry, consts, reads)
@@ -353,7 +429,7 @@ def _program(name, carry, consts, live, reads):
         if pool is None:
             pool = _pools[owner] = _Pool(dev)
         pool.users += 1
-        prog = _Program(carry, consts, live, _ptrs(reads), pool)
+        prog = _Program(carry, consts, live, _ptrs(reads), pool, fresh_pool)
         _watch(reads)
         _programs[key] = prog
         # bound the cache, oldest first; a walk that holds an unlisted
@@ -365,7 +441,7 @@ def _program(name, carry, consts, live, reads):
 
 
 def run_steps(step, carry, consts, live, *, it: int, steps: int, live_n: int,
-              floor: int, route: Route, name=(), reads=()):
+              floor: int, route: Route, name=(), reads=(), fresh_pool=False):
     """Step the walk while ``it < steps`` and more than ``floor`` rows are
     live: on the graphs route ``STEPS_PER_REPLAY`` steps between two reads
     of the live count, on the eager route one. No read follows the step
@@ -374,9 +450,12 @@ def run_steps(step, carry, consts, live, *, it: int, steps: int, live_n: int,
     ``step(carry, consts) -> (carry, live [B] bool)`` must be free of host
     syncs and read no tensor other than its arguments and ``reads`` (plus
     Python constants, which belong in ``name``). ``live_n``: the live count
-    on entry. Returns ``(carry, live, it, live_n)`` after the last step,
-    ``live_n`` as last read (stale once ``it == steps``; ``live`` is not);
-    the carry is the caller's own (never a program's buffers)."""
+    on entry. ``fresh_pool``: the step's intermediates are a large share
+    of the card, so the cache is emptied before its pool's first capture
+    (see the module's notes). Returns ``(carry, live, it, live_n)`` after
+    the last step, ``live_n`` as last read (stale once ``it == steps``;
+    ``live`` is not); the carry is the caller's own (never a program's
+    buffers)."""
     if not (it < steps and live_n > floor):
         return carry, live, it, live_n
     if route is EAGER:
@@ -388,7 +467,7 @@ def run_steps(step, carry, consts, live, *, it: int, steps: int, live_n: int,
                 _read_live()
         return carry, live, it, live_n
     _reap()
-    prog = _program(name, carry, consts, live, reads)
+    prog = _program(name, carry, consts, live, reads, fresh_pool)
     with _holding(prog.pool.lock):
         prog.load(carry, consts)
         while it < steps and live_n > floor:
@@ -399,6 +478,8 @@ def run_steps(step, carry, consts, live, *, it: int, steps: int, live_n: int,
                 live_n = int(prog.count)
                 _read_live()
         carry, live = prog.unload()
+    del prog  # an evicted program dies here, and its pool's memory with it
+    _release()
     return carry, live, it, live_n
 
 
@@ -418,14 +499,16 @@ def clear() -> None:
 
 
 def stats() -> dict:
-    """Counters since import (graphs captured, replays, live-count reads)
-    and what is cached now: programs, graphs, their static buffers' bytes
-    and the pools."""
+    """Counters since import (graphs captured, replays, live-count reads,
+    releases of dead pools' memory) and what is cached now: programs,
+    graphs, their static buffers' bytes, the pools and the dead pools whose
+    memory waits for a release."""
     _reap()
     with _holding(_lock):
         progs = list(_programs.values())
         out = dict(_stats)
         out["pools"] = len(_pools)
+        out["pools_waiting"] = len(_released)
     out["programs"] = len(progs)
     out["graphs"] = sum(len(p.graphs) for p in progs)
     out["buffer_bytes"] = sum(p.nbytes() for p in progs)

@@ -10,8 +10,9 @@ Builds the smoke's descent + walk graph (``chip_smoke.py`` phase 8:
 default route (the per-step loop, one live-count read per step) and on
 CUDA graphs of 4 steps (one read per replay). For each build: its seconds,
 its sym seconds per layer, its peak device memory (allocated and reserved,
-the allocator's peaks) and a SHA-256 digest of its graph's neighbour
-lists, which must be equal. Then the last layer-0 sym pass of the second
+the allocator's peaks), the memory still reserved after it, how many
+times dead walk programs' pools were returned to the device, and a
+SHA-256 digest of its graph's neighbour lists, which must be equal. Then the last layer-0 sym pass of the second
 build runs again on its own input through the eager and the graph route
 in turns, eager, graphs, graphs, eager, ``--rounds`` times: each pass's
 seconds (host clock around a synchronise), peak device memory, live-count
@@ -54,6 +55,7 @@ def build(smoke, dev, n, record=None):
     context manager, or none); returns its numbers, the index and what
     ``record`` yielded."""
     from ggnn_torch import GGNN
+    from ggnn_torch.utils import graphs
 
     base, _ = smoke.make_dataset(n, 10, d=128, seed=0)
     g = GGNN(device=dev)
@@ -62,6 +64,7 @@ def build(smoke, dev, n, record=None):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     before = torch.cuda.memory_allocated(dev)
+    releases = graphs.stats().get("releases")
     t0 = time.perf_counter()
     with record if record is not None else nullcontext() as recorded:
         g.build(k_build=smoke.K_BUILD, tau_build=smoke.TAU_BUILD,
@@ -71,7 +74,10 @@ def build(smoke, dev, n, record=None):
     out = {"build_s": time.perf_counter() - t0,
            "peak_allocated": torch.cuda.max_memory_allocated(dev),
            "peak_reserved": torch.cuda.max_memory_reserved(dev),
-           "allocated_before": before}
+           "allocated_before": before,
+           "reserved_after": torch.cuda.memory_reserved(dev)}
+    if releases is not None:  # a checkout that returns dead pools' memory
+        out["pool_releases"] = graphs.stats()["releases"] - releases
     phases = g.last_build_stats["shards"][0]["phases"]
     out["sym_s"] = {k: v for k, v in phases.items() if k.startswith("sym[")}
     out["digest"] = graph_digest(g)
@@ -83,7 +89,9 @@ def show(label, b):
           f"{json.dumps({k: round(v, 3) for k, v in b['sym_s'].items()})} | "
           f"peak allocated {b['peak_allocated']} B, reserved "
           f"{b['peak_reserved']} B (allocated before {b['allocated_before']} B)"
-          f" | graph digest {b['digest'][:16]}", flush=True)
+          f" | reserved after {b['reserved_after']} B | dead pools' memory "
+          f"released {b.get('pool_releases', 'n/a')} times | graph digest "
+          f"{b['digest'][:16]}", flush=True)
 
 
 def main(argv=None):

@@ -5,11 +5,15 @@ route and the oracle of ``csrc/beam_dedup.cu``) are held exactly against
 ``ggnn_tpu.ops.beam.beam_dedup_mask`` and ``beam_compact_candidates`` on
 the same numpy inputs, at each walk's shape family cut to a few rows:
 heavy duplication inside a tile, candidates already in the beam or the
-visited ring, -1 candidates and ring entries, with and without ``valid``.
-The kernel itself is compared with the plain version on the card only
-(0 differing entries), also replayed from a CUDA graph; the JAX package is
-imported inside the CPU tests, so that the card-only tests run where JAX
-is not installed::
+visited ring, -1 candidates and ring entries, with and without ``valid``;
+and at adversarial cases of the kernel's hash table (``ADVERSARIAL``: ids
+that collide in a power-of-two table, a duplicate whose first occurrence
+is invalid, rows of all -1, rows whose every candidate is in the ring,
+seen lists mostly -1) for K in {1, 31, 33, 97}, each compacted to a cap
+below, at and above its survivors. The kernel itself is compared with the
+plain version on the card only (0 differing entries) at the same cases,
+also replayed from a CUDA graph; the JAX package is imported inside the
+CPU tests, so that the card-only tests run where JAX is not installed::
 
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_dedup.py
 """
@@ -69,6 +73,68 @@ def _inputs(seed, B, K, W, V):
     return (d.astype(np.float32), i, exp, vis, head, xi), cand, valid
 
 
+ADVERSARIAL = ["collide", "invalid first", "all empty", "all in ring",
+               "seen empty"]
+ADVERSARIAL_K = [1, 31, 33, 97]
+
+
+def _adversarial(case, K, B=6, W=13, V=22, seed=0):
+    """A beam state and a candidate tile built against the kernel's hash
+    table (W and V not multiples of 4, so that the card's 16-byte loads
+    meet a ragged head and tail):
+
+    * ``collide``: every id a multiple of 1024, so that they share the low
+      bits of a power-of-two table; repeats inside the tile and copies of
+      beam and ring ids among them;
+    * ``invalid first``: ids repeat, and each id's first occurrence in half
+      the rows is invalid while its later copies are valid (all dropped);
+    * ``all empty``: rows of all -1 candidates, rows of no valid candidate,
+      and rows whose beam and ring are all -1;
+    * ``all in ring``: every candidate of a row is one of its ring's ids;
+    * ``seen empty``: beam and ring mostly -1, candidates ~30% -1."""
+    rng = np.random.default_rng([K, ADVERSARIAL.index(case), seed])
+    n_ids = 2 * K + 2
+    i = rng.integers(0, 4 * n_ids, (B, W))
+    vis = rng.integers(0, 4 * n_ids, (B, V))
+    cand = rng.integers(0, n_ids, (B, K))
+    take = rng.random((B, K))
+    cand = np.where(take < 0.2, i[np.arange(B)[:, None], rng.integers(0, W, (B, K))],
+                    cand)
+    cand = np.where((take >= 0.2) & (take < 0.4),
+                    vis[np.arange(B)[:, None], rng.integers(0, V, (B, K))], cand)
+    valid = rng.random((B, K)) < 0.8
+    if case == "collide":
+        i, vis, cand = i * 1024, vis * 1024, cand * 1024
+        cand = np.where(rng.random((B, K)) < 0.1, -1, cand)
+    elif case == "invalid first":
+        valid[:] = True
+        for b in range(0, B, 2):
+            _, first = np.unique(cand[b], return_index=True)
+            valid[b, first] = False
+    elif case == "all empty":
+        cand[::2] = -1
+        i[1::2] = -1
+        vis[1::2] = -1
+        valid[1::4] = False  # ids, none of them valid
+    elif case == "all in ring":
+        cand = vis[np.arange(B)[:, None], rng.integers(0, V, (B, K))]
+    else:  # seen empty
+        i = np.where(rng.random((B, W)) < 0.9, -1, i)
+        vis = np.where(rng.random((B, V)) < 0.9, -1, vis)
+        cand = np.where(rng.random((B, K)) < 0.3, -1, cand)
+    d = np.where(i >= 0, np.arange(W, dtype=np.float32)[None, :], np.inf)
+    fields = (d.astype(np.float32), i.astype(np.int32), np.zeros((B, W), bool),
+              vis.astype(np.int32), np.zeros(B, np.int32),
+              np.zeros(B, np.float32))
+    return fields, cand.astype(np.int32), valid
+
+
+def _caps(ok):
+    """Caps below, at and above the most survivors of a row (at least 1)."""
+    most = int(np.asarray(ok).sum(axis=1).max())
+    return sorted({max(1, most - 1), max(1, most), most + 3})
+
+
 def _jax(fields, cand, valid):
     import jax.numpy as jnp
     from ggnn_tpu.ops import beam as jbeam
@@ -111,6 +177,31 @@ def test_dedup_compact_matches_jax(caller, cap_of):
     assert packed.shape == (24, min(cap, K))
 
 
+@pytest.mark.parametrize("K", ADVERSARIAL_K)
+@pytest.mark.parametrize("case", ADVERSARIAL)
+def test_plain_dedup_adversarial_matches_jax(case, K):
+    """The plain dedup and dedup + compaction equal the JAX package's on
+    the hash table's adversarial cases, with caps below, at and above the
+    survivors."""
+    fields, cand, valid = _adversarial(case, K)
+    jbeam, jst, jcand, jvalid = _jax(fields, cand, valid)
+    want_ok = jbeam.beam_dedup_mask(jst, jcand, jvalid)
+    st, c, v = _torch(fields, cand, valid)
+    np.testing.assert_array_equal(beam_dedup_mask_plain(st, c, v).numpy(),
+                                  np.asarray(want_ok))
+    for cap in _caps(want_ok):
+        want = np.asarray(jbeam.beam_compact_candidates(jcand, want_ok, cap))
+        ok, packed = beam_dedup_compact(st, c, v, cap)
+        np.testing.assert_array_equal(ok.numpy(), np.asarray(want_ok))
+        np.testing.assert_array_equal(packed.numpy(), want)
+    if case in ("invalid first", "all in ring"):
+        # the first occurrences are invalid or every id is seen
+        assert not np.asarray(want_ok)[0].any()
+    if case == "all empty":
+        assert not np.asarray(want_ok)[::2].any()
+        assert not np.asarray(want_ok)[1::4].any()
+
+
 def test_cpu_route_launches_nothing(monkeypatch):
     fields, cand, valid = _inputs(3, 8, 96, 64, 64)
     monkeypatch.setattr(beam, "launches", 0)
@@ -134,8 +225,9 @@ def _bad_inputs(kind):
         v = v.to(torch.int8)
     elif kind == "strided row":
         c = torch.from_numpy(np.repeat(cand, 2, axis=1))[:, ::2]
-    elif kind == "shared memory":
-        st = st._replace(vis=torch.full((4, 60_000), -1, dtype=torch.int32))
+    elif kind == "shared memory":  # a row's hash table of 2^15 slots
+        c = torch.full((4, 8193), -1, dtype=torch.int32)
+        v = None
     return st, c, v
 
 
@@ -146,6 +238,24 @@ def test_kernel_route_refuses_what_it_cannot_take(kind):
     kernel route's own entry, which checks before it touches a device)."""
     with pytest.raises(ValueError, match="beam dedup kernel"):
         beam._launch(*_bad_inputs(kind), 16)
+
+
+@pytest.mark.parametrize("K, W, V", [*SHAPES.values(), (384, 6048, 2144),
+                                     (1000, 64, 64), (1, 8, 1)])
+def test_kernel_layout_fits(K, W, V):
+    """The kernel's per-block layout (mirrored from ``csrc/beam_dedup.cu``)
+    at every walk's shape, k_query 6000's widest beam and ragged K: a
+    power-of-two table of >= 2K slots (>= 4K for a seen list above 8K)
+    that never grows with W + V beyond that, whole warps of rows, within
+    the block's shared memory."""
+    slots = beam.table_slots(K, W, V)
+    assert slots & (slots - 1) == 0 and slots >= max(32, 2 * K)
+    assert slots < (8 if W + V > 8 * K else 4) * max(16, K)
+    rows = beam.rows_per_block(K, W, V)
+    assert rows in (1, 2, 4, 8)
+    assert beam.shared_bytes(K, W, V) == rows * 8 * slots <= beam.MAX_SHARED_BYTES
+    assert rows == 1 or rows * 8 * slots <= beam.SMEM_TARGET
+    assert K <= 32 * beam.register_chunks(K) or beam.register_chunks(K) == 12
 
 
 def test_other_device_raises():
@@ -193,6 +303,30 @@ def test_cuda_kernel_matches_plain(cuda_device, caller, with_valid, padded):
         assert torch.equal(ok, want) and torch.equal(ok2, want)
         assert torch.equal(packed, beam_compact_candidates_plain(c, want, cap))
     assert (beam.launches - n0, beam.launches_compact - c0) == (4, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("K", ADVERSARIAL_K)
+@pytest.mark.parametrize("case", ADVERSARIAL)
+def test_cuda_kernel_adversarial_matches_plain(cuda_device, case, K, padded):
+    """The hash table's adversarial cases, also at row strides: 0
+    differing entries in ``ok`` and, at caps below, at and above the
+    survivors, in ``packed``."""
+    fields, cand, valid = _adversarial(case, K, B=300)
+    st, c, v = _torch(fields, cand, valid, cuda_device)
+    if padded:
+        c = torch.cat([c, c[:, :3]], dim=1)[:, :K]
+        v = torch.cat([v, v[:, :3]], dim=1)[:, :K]
+        st = st._replace(i=torch.cat([st.i, st.i[:, :1]], dim=1)[:, :st.i.shape[1]],
+                         vis=torch.cat([st.vis, st.vis[:, :1]], dim=1)[:, :st.vis.shape[1]])
+    want = beam_dedup_mask_plain(st, c, v)
+    assert torch.equal(beam_dedup_mask(st, c, v), want)
+    for cap in _caps(want.cpu()):
+        ok, packed = beam_dedup_compact(st, c, v, cap)
+        torch.cuda.synchronize()
+        assert torch.equal(ok, want)
+        assert torch.equal(packed, beam_compact_candidates_plain(c, want, cap))
 
 
 @pytest.mark.cuda

@@ -32,12 +32,16 @@ Card cases (marker ``cuda``; skipped without a card)::
 * The graph route equals the eager route bit for bit on a small base: fused
   u8, group 2 and int4, the row walk, cosine, a uint8 base and k_query=6000;
   the kernel's launches rise by the replays' count. So does a layer-0 sym
-  pass in walk mode (new graph and counters) on the graph route, with one
-  capture for its one walk shape; no program is left reading its graph.
+  pass in walk mode (new graph and counters) on the graph route, with two
+  captures for its one walk shape (the uncapped first step, the capped
+  steps); no program is left reading its graph.
 * A rotated run through graphs equals the all-resident one, and its
   second call captures fewer graphs than its first.
 * A GGNN that goes out of scope gives back its device memory, the graphs'
-  pools included.
+  pools included; a walk's pool goes back to the device once the tensor it
+  reads is freed, with no ``empty_cache`` call in the test (on the CPU:
+  the release's bookkeeping, deferred while a capture holds the lock and
+  while the dead pools hold little).
 """
 
 from typing import NamedTuple
@@ -240,6 +244,50 @@ def test_freed_tensors_release_their_programs(built):
     assert graphs.stats()["programs"] == 1
     assert all(r <= _tensor_ptrs(g) for r in graphs.entries())
     graphs.clear()
+
+
+def test_dead_pools_memory_goes_back_once(built, monkeypatch):
+    """A pool whose last program is gone has its memory emptied from the
+    allocator's cache once: not while a capture holds the capture lock
+    (then at the next reap), not while the dead pools hold little (then
+    once they hold more), and not for a pool that never captured. On the
+    CPU's programs, whose pools are marked captured, 100 bytes each, as the
+    card's captures mark them; ``empty_cache`` counted, not run, and the
+    card's share given."""
+    _, query, gs = built
+    g = gs[E]
+    graphs.clear()
+    calls, share = [], [50]
+    monkeypatch.setattr(graphs.torch.cuda, "empty_cache", lambda: calls.append(1))
+    monkeypatch.setattr(graphs.torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    monkeypatch.setattr(graphs, "_share_bytes", lambda device: share[0])
+    index, base = g._shards[0].fused_index, g._shards[0].base_dev
+    a, b, c = (type(index)(*(t.clone() for t in index)) for _ in range(3))
+    for idx in (a, b, c):
+        fused_query(torch.from_numpy(query), idx, base, 10, 0.6, 64,
+                    pops_per_iter=4, compact_levels=0, route=graphs.GRAPHS)
+    del idx
+    assert graphs.stats()["pools"] == 3
+    for t in (a.blocks, b.blocks):
+        graphs._pools[("cpu", t.data_ptr())].captured = True
+        graphs._pools[("cpu", t.data_ptr())].nbytes = 100
+    releases = graphs.stats()["releases"]
+    graphs.drop(*c)
+    assert calls == []  # it never captured: no pool memory to give back
+    with graphs._capture_lock:  # as while another thread captures
+        graphs.drop(*a)
+        assert calls == [] and graphs.stats()["pools_waiting"] == 1
+    share[0] = 150  # the dead pool holds little: its memory waits
+    assert graphs.stats()["pools_waiting"] == 1 and calls == []
+    share[0] = 50
+    assert graphs.stats()["pools_waiting"] == 0 and calls == [1]
+    del b  # freed: its program is released, and its pool's memory once
+    assert calls == [1, 1]
+    assert graphs.stats()["releases"] - releases == 2
+    assert graphs.stats()["pools"] == 0
+    graphs.clear()
+    assert calls == [1, 1]
 
 
 def _tensor_ptrs(g):
@@ -501,8 +549,9 @@ def test_card_kquery_6000_graph_route_equals_eager(card):
 @pytest.mark.cuda
 def test_card_sym_walk_graph_route_equals_eager(card):
     """A layer-0 sym pass in walk mode: the walk's steps replayed as graphs
-    give the per-step loop's graph and counters, with one capture for the
-    pass's one walk shape and fewer live-count reads."""
+    give the per-step loop's graph and counters, with two captures for the
+    pass's one walk shape (its uncapped first step and the capped steps,
+    each a program of its own) and fewer live-count reads."""
     g, _, m = card["f32"]
     shard = g._shards[0]
     nbrs = shard.graph.neighbors[0]
@@ -514,7 +563,7 @@ def test_card_sym_walk_graph_route_equals_eager(card):
     assert stats["walk_rows"] > 0
     for key in ("overflow", "added_links", "walk_rows", "total_rows"):
         assert stats[key] == want_stats[key], key
-    assert stats["walk_graphs_captured"] == 1
+    assert stats["walk_graphs_captured"] == 2
     assert want_stats["walk_graphs_captured"] == 0
     assert stats["walk_live_reads"] < want_stats["walk_live_reads"]
     ptr = (str(nbrs.device), nbrs.data_ptr())
@@ -584,3 +633,50 @@ def test_card_memory_returns_after_del(cuda_device):
     assert graphs.stats()["programs"] == 0
     assert graphs.pool_bytes() in (0, None)
     assert torch.cuda.memory_allocated() == before
+
+
+class _Wide(NamedTuple):
+    x: torch.Tensor
+
+
+@pytest.mark.cuda
+def test_card_released_pool_returns_to_the_device(cuda_device):
+    """Once the tensor a walk reads is freed, its program's pool goes back
+    to the device: ``torch.cuda.memory_reserved()`` comes back near its
+    value before the walk, and this test never calls ``empty_cache``. The
+    walk's step makes an [n, n] f32 intermediate of twice what
+    ``graphs.CACHE_SHARE`` lets dead pools keep (2.5 GB on an 80 GB card),
+    which its graphs keep in their pool while the program lives."""
+    graphs.clear()
+    total = torch.cuda.get_device_properties(cuda_device).total_memory
+    n = -(-int((2 * graphs.CACHE_SHARE * total / 4) ** 0.5) // 1024) * 1024
+
+    def walk(table):
+        def step(c, consts):
+            wide = torch.outer(c.x + 1.0, table)  # [n, n] f32 in the pool
+            x = c.x + wide[:, :1].squeeze(1) * 0.0 + 1.0
+            return _Wide(x), x < 100.0
+
+        live = torch.ones((n,), dtype=torch.bool, device=cuda_device)
+        carry, *_ = graphs.run_steps(
+            step, _Wide(torch.zeros((n,), device=cuda_device)), (), live, it=0,
+            steps=8, live_n=n, floor=0, route=graphs.GRAPHS,
+            name=("released pool",), reads=(table,))
+        return carry.x
+
+    # libraries, streams and the first pool come and go once
+    walk(torch.ones((n,), device=cuda_device))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved()
+    table = torch.ones((n,), device=cuda_device)
+    x = walk(table)
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.full_like(x, 8.0))
+    during = torch.cuda.memory_reserved()
+    pool = graphs.pool_bytes()
+    assert pool is None or pool >= n * n * 4
+    assert during - before >= n * n * 4
+    del table  # the program that reads it goes, and its pool with it
+    after = torch.cuda.memory_reserved()
+    assert graphs.stats()["programs"] == 0
+    assert after - before <= 32 << 20, (before, during, after)
