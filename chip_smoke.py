@@ -152,6 +152,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    sweep; graph route against eager at every operating point (and for the
    cosine row walk at (0.5, 64)). The kernel must launch in the builds and
    in the fused queries.
+12b. The entry points (``ggnn_torch/entry.py``, the counterpart of the JAX
+   package's ``__graft_entry__``): ``entry()``'s fused query tile at its own
+   shape (2,048 points, 256 queries) through both routes, which must agree
+   bit for bit (0 differing rows), with each route's ms per call; its ids
+   against the same tile run on the CPU (the plain kernels) on the same
+   inputs: at most 1% of rows may differ (the kernel sums in another order
+   than its plain version) and rows of equal ids must have dists within
+   rtol 1e-5. Then the tile at full width (``ENTRY_FULL``: 262,144 points,
+   k_build=48, 8,192 queries, 1.6 GB of codes): the seconds to draw its
+   inputs, each route's ms per tile, 0 differing rows. Then
+   ``dryrun_multichip(8)`` over 8 slots of the card: its seconds, build
+   workers (8) and merge route (``devices``). Both kernels must launch in
+   each of the three parts.
 13. The headline: ``bench_torch.run`` (the port of the JAX package's
    ``bench.py``) at its own scale, 1,000,000 points resident on the card
    and 50,000 queries (k_build=48, group 1, one build, no cache): build,
@@ -179,7 +192,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 Every phase prints its seconds. Every kernel's launch counts are set to 0
 just before each path runs and read just after it (launches inside CUDA
 graphs count once per replay); the dedup kernel must launch on every path
-that walks (phases 4-10, 12, 13). A failure prints its traceback to stdout
+that walks (phases 4-10, 12, 12b, 13). A failure prints its traceback to stdout
 and the script exits 1 without a result line.
 """
 
@@ -209,6 +222,7 @@ from ggnn_torch.native import io as native_io
 from ggnn_torch import ggnn as ggnn_mod
 from ggnn_torch.build import construction
 from ggnn_torch.build import sym as sym_mod
+from ggnn_torch.entry import dryrun_multichip, entry
 from ggnn_torch.native import merge as native_merge
 from ggnn_torch.ops import adjacency, beam
 from ggnn_torch.ops import traverse as traverse_mod
@@ -240,6 +254,10 @@ N_CLI, NQ_CLI, CLI_SHARD = 65_536, 1_000, 32_768
 # k_query at the reference's bound: queries, pop budget, fused pops per step
 KQ_MAX, NQ_KQ, KQ_BUDGET, KQ_FUSED_P = 6000, 1_000, 2_000, 32
 N_MEASURES = 65_536  # the cosine build and the uint8 base
+# the entry tile at full width: points, k_build, queries (the
+# fused path's tile); the share of rows that may differ from the CPU run
+ENTRY_FULL = {"n": 262_144, "k_build": 48, "batch": 8192}
+ENTRY_CPU_ROWS = 0.01
 # bench.py's own scale: points resident on the card, queries
 N_HEADLINE, NQ_HEADLINE = 1_000_000, 50_000
 # batch sizes of the tile-plan check, in this order, each a call of its own
@@ -1582,6 +1600,59 @@ def measures_path(device, n=N_MEASURES, nq=NQ):
     return out
 
 
+def entry_path(device):
+    """The entry points: the tile at its own shape on both routes and
+    against the CPU, at full width on both routes, and the dry run over 8
+    slots of ``device``. Returns each part's numbers and kernel launches."""
+    fn, args = entry(device)
+    zero_launches()
+    own = graph_vs_eager(device, "entry (2,048 points, 256 queries)",
+                         lambda r: fn(*args, route=r), reps=10)
+    ids, dists = (t.cpu().numpy() for t in fn(*args))
+    counts_own = launches_now()
+    fn_cpu, args_cpu = entry("cpu")
+    ids_cpu, dists_cpu = (t.numpy() for t in fn_cpu(*args_cpu))
+    differ = np.any(ids != ids_cpu, axis=1)
+    same = ~differ
+    err = float(np.max(np.abs(dists[same] - dists_cpu[same]), initial=0.0))
+    own.update(rows_vs_cpu=int(differ.sum()), max_abs_err_vs_cpu=err)
+    print(f"entry: card vs CPU (plain kernels): {own['rows_vs_cpu']} of "
+          f"{len(ids)} rows differ in ids | equal-id rows' dists max abs err "
+          f"{err:.3e} | kernel launches {json.dumps(counts_own)}", flush=True)
+    if differ.sum() > ENTRY_CPU_ROWS * len(ids):
+        raise AssertionError(f"entry: {int(differ.sum())} rows differ from the "
+                             "CPU run")
+    if not np.allclose(dists[same], dists_cpu[same], rtol=1e-5, atol=0):
+        raise AssertionError("entry: equal-id rows' dists differ from the CPU "
+                             "run beyond rtol 1e-5")
+
+    t0 = time.perf_counter()
+    fn, args = entry(device, **ENTRY_FULL)
+    _sync(device)
+    inputs_s = time.perf_counter() - t0
+    zero_launches()
+    full = graph_vs_eager(device, f"entry at full width ({json.dumps(ENTRY_FULL)})",
+                          lambda r: fn(*args, route=r))
+    counts_full = launches_now()
+    full["inputs_s"] = inputs_s
+    print(f"entry at full width: inputs drawn and on the card in {inputs_s:.2f} "
+          f"s | kernel launches {json.dumps(counts_full)}", flush=True)
+    del fn, args
+
+    zero_launches()
+    dry = dryrun_multichip(8, device=device)
+    counts_dry = launches_now()
+    dry = {k: dry[k] for k in ("seconds", "workers", "route", "slots")}
+    print(f"dryrun_multichip(8): {dry['seconds']:.2f} s | slots {dry['slots']} | "
+          f"build workers {dry['workers']} | merge route {dry['route']} | kernel "
+          f"launches {json.dumps(counts_dry)}", flush=True)
+    counts = {"entry": counts_own, "entry_full": counts_full, "dryrun": counts_dry}
+    for part, c in counts.items():
+        _launched(c["adjacency_dot"], f"the {part} path", device)
+        _dedup_launched(c, f"the {part} path", device)
+    return {"entry": own, "entry_full": full, "dryrun": dry, "counts": counts}
+
+
 def headline_path(device, n=N_HEADLINE, nq=NQ_HEADLINE):
     """The port's headline benchmark (``bench_torch.run``) at ``n`` points
     resident and ``nq`` queries, one build and no cache. Prints its result
@@ -1758,6 +1829,10 @@ def run(device):
     measures = measures_path(device)
     torch.cuda.empty_cache()
     t0 = _phase("cosine build and uint8 base (builds, sweeps, graph vs eager)", t0)
+    entries = entry_path(device)
+    torch.cuda.empty_cache()
+    t0 = _phase("entry points (the tile at its own shape and at full width, "
+                "dryrun_multichip(8))", t0)
     headline, headline_stats = headline_path(device)
     torch.cuda.empty_cache()
     t0 = _phase(f"headline (bench_torch.run: {N_HEADLINE} points, {NQ_HEADLINE} "
@@ -1772,7 +1847,9 @@ def run(device):
         "layouts": {k: {f: v for f, v in r.items() if f != "real"}
                     for k, r in layouts.items()}, "f32_fetch_build": f32,
         "descent_walk_build": descent, "sharded": sharded, "devices": devices,
-        "cli_s": cli, "headline": {"result": headline, **{
+        "cli_s": cli,
+        "entry_points": {k: v for k, v in entries.items() if k != "counts"},
+        "headline": {"result": headline, **{
             k: v for k, v in headline_stats.items() if k != "real"}},
     }), flush=True)
 
@@ -1798,6 +1875,7 @@ def run(device):
         "uint8_build": measures["uint8"]["counts"]["build"],
         "uint8_queries": measures["uint8"]["counts"]["fused_queries"],
         "uint8_row_queries": measures["uint8"]["counts"]["row_queries"],
+        **entries["counts"],
         "headline": headline_stats["counts"],
     }
 

@@ -38,6 +38,8 @@ from ggnn_torch.ggnn import GGNN, Results, ResultsFuture  # noqa: E402
 from ggnn_torch.graph import Graph  # noqa: E402
 from ggnn_torch.utils.logging import get_log_level, set_log_level  # noqa: E402
 
+__version__ = "0.1.0"
+
 __all__ = [
     "GGNN",
     "Results",

@@ -23,7 +23,10 @@ def _fields(obj) -> dict:
 
 
 def _t(x, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(x))).to(device)
+    a = np.ascontiguousarray(np.asarray(x))
+    if not a.flags.writeable:  # arrays from JAX are read-only
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
 
 
 def graph_from_numpy(graph, device="cpu") -> Graph:

@@ -345,6 +345,9 @@ class GGNN:
         self._shards = []
         self._cfg = None
 
+    # the reference's name for the same call: the base is not copied either way
+    set_base_reference = set_base
+
     def set_working_directory(self, path) -> None:
         self._working_dir = Path(path)
 

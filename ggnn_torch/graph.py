@@ -21,7 +21,7 @@ import torch
 
 from ggnn_torch.config import GraphConfig
 
-__all__ = ["Graph", "save_graph_shard", "load_graph_shard"]
+__all__ = ["Graph", "empty_graph", "save_graph_shard", "load_graph_shard"]
 
 
 class Graph(NamedTuple):
@@ -53,6 +53,22 @@ class Graph(NamedTuple):
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
                    for f in self for t in (f if isinstance(f, tuple) else (f,)))
+
+
+def empty_graph(config: GraphConfig, device) -> Graph:
+    """An all-invalid graph shard with the config's geometry on ``device``:
+    every id -1, ``nn1_stats`` zero."""
+    def invalid(*shape):
+        return torch.full(shape, -1, dtype=torch.int32, device=device)
+
+    return Graph(
+        neighbors=tuple(invalid(config.Ns[l], config.KBuild)
+                        for l in range(config.L)),
+        selection=tuple(invalid(config.Ns[l] if l else 0) for l in range(config.L)),
+        translation=tuple(invalid(config.Ns[l] if l else 0)
+                          for l in range(config.L)),
+        nn1_stats=torch.zeros((2,), dtype=torch.float32, device=device),
+    )
 
 
 def _np(t) -> np.ndarray:

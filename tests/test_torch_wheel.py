@@ -1,5 +1,5 @@
 """The wheel: it builds offline from a copy of the sources, carries the
-port's kernel and native sources, and an installed ``ggnn_torch`` builds
+port's kernel and native sources and its entry points, and an installed ``ggnn_torch`` builds
 its libraries under ``$GGNN_TORCH_CACHE`` or in the temporary directory,
 never inside the installed tree.
 """
@@ -17,6 +17,7 @@ from ggnn_torch.utils import cache
 
 REPO = Path(__file__).resolve().parents[1]
 SOURCES = {"ggnn_torch/csrc/adjacency_dot.cu",
+           "ggnn_torch/entry.py",
            "ggnn_torch/native/src/ggnn_native.cpp",
            "ggnn_tpu/native/src/ggnn_native.cpp"}
 
