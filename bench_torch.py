@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ggnn_torch import GGNN, Evaluator, set_log_level
-from ggnn_torch.ops import adjacency, beam
+from ggnn_torch.ops import adjacency, approx_topk, beam
 
 BASELINE_QPS = 500_000.0
 
@@ -50,7 +50,9 @@ BASELINE_QPS = 500_000.0
 # graph's recorded build time is then stale, and a mismatch rebuilds. Kept
 # apart from the JAX package's version: its caches never count as the
 # port's (``CACHE_PACKAGE`` below).
-BUILD_PATH_VERSION = 1  # 1 = the port's bulk-sym, dense-seed quantized build
+# 1 = the port's bulk-sym, dense-seed quantized build; 2 = its merges seeded
+# by the TPU's approximate top-k
+BUILD_PATH_VERSION = 2
 CACHE_PACKAGE = "ggnn_torch"
 DATASET_SEED = 0
 
@@ -188,17 +190,19 @@ def run(n, nq, k_build, group, device, cache, warm_build, curve, sweep=SWEEP,
     ``stats``: a dict that receives what the run saw beside its result --
     whether the graph came from the cache, the build's phase seconds, the
     index, brute-force and sweep seconds, the index's device bytes per
-    point, every sweep point, the adjacency and the dedup kernels'
-    launches in the build and in the queries, the data with the ground
-    truth, on CUDA the peak device memory of each stage, and the ``GGNN``
-    itself under ``"ggnn"``, left open for the caller to query further and
-    close (without ``stats`` the run closes it)."""
+    point, every sweep point, the adjacency, the dedup and the seeding's
+    approximate top-k kernels' launches in the build and in the queries,
+    the data with the ground truth, on CUDA the peak device memory of each
+    stage, and the ``GGNN`` itself under ``"ggnn"``, left open for the
+    caller to query further and close (without ``stats`` the run closes
+    it)."""
     g = GGNN(device=device)  # no CUDA device: raises here
     device = g.device
     print(f"# device: {_device_name(device)}", file=sys.stderr)
     if stats is not None and device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     launches0, dedup0 = adjacency.launches, beam.launches
+    approx0 = approx_topk.launches
     base, query = make_dataset(n, nq, seed=DATASET_SEED)
 
     meta_path = os.path.join(cache, "bench_meta.json") if cache else None
@@ -232,6 +236,7 @@ def run(n, nq, k_build, group, device, cache, warm_build, curve, sweep=SWEEP,
         _peaks(device, stats, "build")
     launches_build = adjacency.launches - launches0
     dedup_build = beam.launches - dedup0
+    approx_build = approx_topk.launches - approx0
     load_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -266,6 +271,7 @@ def run(n, nq, k_build, group, device, cache, warm_build, curve, sweep=SWEEP,
     # the queries go to the device once, outside the timed region
     query_dev = torch.from_numpy(query).to(device)
     launches_swept, dedup_swept = adjacency.launches, beam.launches
+    approx_swept = approx_topk.launches
     points = []
     best = None
     t0 = time.perf_counter()
@@ -319,6 +325,8 @@ def run(n, nq, k_build, group, device, cache, warm_build, curve, sweep=SWEEP,
             "launches_queries": adjacency.launches - launches_swept,
             "dedup_launches_build": dedup_build,
             "dedup_launches_queries": beam.launches - dedup_swept,
+            "approx_launches_build": approx_build,
+            "approx_launches_queries": approx_topk.launches - approx_swept,
             "base": base, "query": query, "gt_ids": gt_ids, "gt_dists": gt_dists,
             "ggnn": g,
         })

@@ -7,9 +7,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: print the ``nvidia-smi`` name and power-limit line; a CUDA device
    is required (there is no CPU fallback).
-2. Kernel build: compile ``ggnn_torch/csrc/adjacency_dot.cu`` and
-   ``ggnn_torch/csrc/beam_dedup.cu`` from this checkout, one ``nvcc`` each,
-   both at once, and print the seconds each took and the libraries' paths
+2. Kernel build: compile ``ggnn_torch/csrc/adjacency_dot.cu``,
+   ``ggnn_torch/csrc/beam_dedup.cu`` and ``ggnn_torch/csrc/approx_topk.cu``
+   from this checkout, one ``nvcc`` each, all at once, and print the
+   seconds each took and the libraries' paths
    (named by the hash of the source and the nvcc flags), then each kernel's
    registers, shared and local (spill) bytes (``cuobjdump -res-usage``) and
    the count of ``I2F*`` instructions in the adjacency kernels' SASS
@@ -35,6 +36,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    host path's ms (CUDA events around Python calls of the wrapper), the
    plain version's ms, the bytes bound, the rows (warps) per block, the
    shared bytes per block and the kernel's registers and spills.
+3c. Approximate top-k against plain: ``approx_smallest_k`` (the seeding's
+   fused distance epilogue + binning + top-k, ``csrc/approx_topk.cu``)
+   against ``finish`` + ``approx_smallest_k_plain`` on the same cuBLAS dot
+   products, at ``APPROX_SHAPES`` (the headline's 8,192 x 30,752 tiles at
+   k=8 and k=32, its padded last tile, a row below 128, an exact row of
+   passes) and at three of them in cosine: ids must be equal and the
+   distances bit-equal (cosine: within 2 ulp). Prints the kernel's ms,
+   the plain version's, the exact route's (``finish`` + ``torch.topk``),
+   the bytes bound and its share, the seeds' recall against the exact
+   top-k, shared bytes and registers. The same check runs again on each
+   path's own seeding inputs once the path is done
+   (``approx_on_real_inputs``: phases 4, 7, 9, 10, 12 in cosine and uint8,
+   and 13): each dense-seeded merge's first chunk against its layer's
+   representatives at k=32, each query tile against the fused index's
+   representatives at the benchmark's num_seeds.
 4. Main path: ``GGNN(device="cuda")`` builds a 262,144-point graph
    (k_build=48, tau_build=0.5, 2 refinements) over the benchmark's
    synthetic SIFT-like data, derives the fused index, computes brute-force
@@ -42,8 +58,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    cheapest first until c@1 >= 0.90. QPS is timed with CUDA events around
    the queries alone, queries already on the card and results left there.
    The kernel's launch counter must rise during the build and again during
-   the queries; every count includes the launches replayed from CUDA
-   graphs (one per captured launch per replay). At the operating point the
+   the queries, and so must the approximate top-k's (the build's merges
+   and the queries' seeding); every count includes the launches replayed
+   from CUDA graphs (one per captured launch per replay). At the operating point the
    graph route (the walks' steps replayed as CUDA graphs, the live count read
    once per replay) must return the eager route's ids and dists bit for
    bit: the count of differing rows is printed and must be 0, with each
@@ -177,6 +194,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    truth's distances on a sample of rows must be the exact ones. Then one
    call at the operating point under ``torch.profiler`` (as in phase 4)
    and the kernel against its plain version on that call's real anchors.
+   The approximate top-k must launch in the build and in the queries. It
+   prints the graph's digest (``sym_bench.graph_digest``) and sweeps
+   every point again with exact then approximate seeds (``seed_approx``;
+   c@1 within 0.003 printed, not enforced), and profiles the operating
+   point with each, the device ms of the ``seed``, ``walk`` and ``rerank``
+   ranges per tile beside the kernels, and the approximate top-k's
+   launches in the trace beside those its wrapper counted.
 14. The ``nvidia-smi`` name and power-limit line again, then one JSON line
    with the kernels' numbers: ``adjacency_dot`` (its bound: the bytes it must
    move -- each block a live anchor names read once, the query rows and
@@ -186,13 +210,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    the resources and the I2F count of phase 2), ``beam_dedup`` and
    ``beam_dedup_compact`` (phase 3b's numbers at every shape, the bytes
    bound -- each input read once, each output written once; launches per
-   path),
+   path), ``approx_topk`` (phase 3c's numbers at every shape, the bytes
+   bound, ``library_ms`` the exact route's; the checks on each path's own
+   inputs; launches per path),
    then the last line ``{"ok": true, "device": {...}}``.
 
 Every phase prints its seconds. Every kernel's launch counts are set to 0
 just before each path runs and read just after it (launches inside CUDA
 graphs count once per replay); the dedup kernel must launch on every path
-that walks (phases 4-10, 12, 12b, 13). A failure prints its traceback to stdout
+that walks (phases 4-10, 12, 12b, 13), the approximate top-k in phases 4
+and 13. A failure prints its traceback to stdout
 and the script exits 1 without a result line.
 """
 
@@ -215,6 +242,7 @@ import torch
 
 import bench_torch
 from bench_torch import QKW, make_dataset
+from sym_bench import graph_digest
 from ggnn_torch import (DistanceMeasure, Evaluator, GGNN, GraphConfig,
                         UCharDataset, store_fvecs)
 from ggnn_torch.native import build as native_build
@@ -224,7 +252,9 @@ from ggnn_torch.build import construction
 from ggnn_torch.build import sym as sym_mod
 from ggnn_torch.entry import dryrun_multichip, entry
 from ggnn_torch.native import merge as native_merge
-from ggnn_torch.ops import adjacency, beam
+from ggnn_torch.ops import adjacency, approx_topk, beam
+from ggnn_torch.ops.distance import finish, squared_norms
+from ggnn_torch.ops.topk import smallest_k_positions
 from ggnn_torch.ops import traverse as traverse_mod
 from ggnn_torch.parallel import merge_over_devices
 from ggnn_torch.query import fused as fused_mod
@@ -279,6 +309,21 @@ DEDUP_SHAPES = [
     (f"k_query {KQ_MAX} fused step", NQ_KQ, 384, 6048, 2144, None),
     (f"k_query {KQ_MAX} row step", NQ_KQ, 384, 6048, 2144, 288),
 ]
+
+# the approximate top-k's check shapes: (label, rows, representatives n,
+# seeds k, query rows): the headline's seeding tiles at 1,000,000 points
+# (30,752 layer-1 representatives; the benchmark's num_seeds and the build
+# merge's), the last tile of its 50,000 queries (848 rows padded to 1,024),
+# a row shorter than 128 (no reduction) and an exact row of more than 8
+# bins a thread (passes); and those checked in cosine too
+APPROX_SHAPES = [
+    ("query seeding", 8192, 30752, 8, 8192),
+    ("merge seeding", 8192, 30752, 32, 8192),
+    ("padded tail tile", 1024, 30752, 8, 848),
+    ("n below 128", 8192, 100, 8, 8192),
+    ("exact, passes", 1024, 3000, 100, 1024),
+]
+APPROX_COSINE = ("merge seeding", "padded tail tile", "n below 128")
 
 
 def time_ms(fn, device, reps=10, warmup=2):
@@ -523,16 +568,191 @@ def check_dedup(device, shapes=DEDUP_SHAPES):
     return out
 
 
+def approx_inputs(device, B, n, rows, measure=DistanceMeasure.Euclidean):
+    """The seeding's inputs at one shape: ``n`` representatives and ``B``
+    query rows from the benchmark's data (its generator at seed 1), the
+    rows past ``rows`` zero (a padded tile); for cosine one representative
+    of zero norm. Returns (dot = q @ c.T by cuBLAS, q_sq, c_sq) on
+    ``device``."""
+    reps, qs = make_dataset(n, B, d=D, seed=1)
+    q = torch.from_numpy(qs).to(device)
+    q[rows:] = 0
+    c = torch.from_numpy(reps).to(device)
+    if measure == DistanceMeasure.Cosine:
+        c[0] = 0
+    return q @ c.T, squared_norms(q), squared_norms(c)
+
+
+def approx_bound(B, n, k):
+    """The least time the card could take for one approximate top-k: the
+    dot matrix, both norms read once and the [B, k] distances and positions
+    written once, at 3.35 TB/s, against the epilogue's 4 f32 operations an
+    element (add, multiply, subtract, compare) at 67 TFLOP/s. Returns
+    (bytes, bound ms, "bytes" or "operations")."""
+    nbytes = B * n * 4 + n * 4 + B * 4 + B * k * 8
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_S * 1e3, 4 * B * n / F32_FLOP_S * 1e3
+    return nbytes, max(bytes_ms, ops_ms), (
+        "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def approx_resources(res, n, k):
+    """Registers, local (spill) and static shared bytes of the approximate
+    top-k kernel that a launch at (n, k) runs, from ``res``
+    (``approx_topk.kernel_resources()``), or "not available"."""
+    tag = f"approx_topk_kernelILi{approx_topk.bins_per_pass(n, k)}EE"
+    return next(({f: r[f] for f in ("REG", "SHARED", "LOCAL", "STACK") if f in r}
+                 for name, r in (res or {}).items() if tag in name),
+                "not available")
+
+
+def measure_approx(device, label, B, n, k, rows, measure=DistanceMeasure.Euclidean,
+                   resources=None):
+    """The approximate top-k kernel against its plain version on the same
+    dot products (Euclidean: ids equal and distances bit-equal; cosine: ids
+    equal and distances within 2 ulp, ``rsqrtf``); the kernel's ms, the
+    plain version's (``finish`` + the op in torch), the current exact
+    route's (``finish`` + ``smallest_k_positions``: ``torch.topk``, the
+    exact set, not the binned one), the bound and its share, the seeds'
+    recall against the exact top-k on the query rows."""
+    dot, q_sq, c_sq = approx_inputs(device, B, n, rows, measure)
+
+    def run():
+        return approx_topk.approx_smallest_k(dot, q_sq, c_sq, k, measure)
+
+    def dists():
+        return finish(dot, q_sq[:, None], c_sq[None, :], measure)
+
+    def plain():
+        return approx_topk.approx_smallest_k_plain(dists(), k)
+
+    def exact():
+        return smallest_k_positions(dists(), k)
+
+    d, p = run()
+    _sync(device)
+    want_d, want_p = plain()
+    ids_differ = int((p != want_p).sum())
+    ulp = int((d.view(torch.int32).long()
+               - want_d.view(torch.int32).long()).abs().max())
+    err = float((d - want_d).abs().max())
+    if ids_differ or ulp > (0 if measure == DistanceMeasure.Euclidean else 2):
+        raise AssertionError(f"approx top-k ({label}, {measure.name}) differs from "
+                             f"its plain version: {ids_differ} ids, distances "
+                             f"up to {ulp} ulp")
+    _, exact_p = exact()
+    hit = (p[:rows, :, None] == exact_p[:rows, None, :]).any(-1)
+    recall = float(hit.float().mean())
+    ms, _ = time_ms(run, device)
+    plain_ms, _ = time_ms(plain, device)
+    library_ms, _ = time_ms(exact, device)
+    del dot
+    nbytes, bound_ms, bound_by = approx_bound(B, n, k)
+    M = approx_topk.reduction_size(n, k)
+    print(f"approx top-k {label} ({measure.name}) B={B} n={n} k={k} rows={rows} "
+          f"bins={M}: differing ids {ids_differ}, distances max {ulp} ulp (max "
+          f"abs err {err:.3g}) | recall vs exact {recall:.4f} | kernel {ms:.4f} "
+          f"ms | plain {plain_ms:.4f} ms | exact route (finish + torch.topk) "
+          f"{library_ms:.4f} ms | bound {bound_ms:.4f} ms ({nbytes} B at 3.35 "
+          f"TB/s) | share of bound {bound_ms / ms:.3f} | shared bytes per "
+          f"block {approx_topk.shared_bytes(n, k)} | resources "
+          f"{json.dumps(resources)}", flush=True)
+    return {"max_abs_err": err, "differing": ids_differ, "max_ulp": ulp,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "bytes": nbytes, "recall": recall,
+            "bins": M, "shared_bytes": approx_topk.shared_bytes(n, k),
+            "resources": resources}
+
+
+def check_approx(device, shapes=APPROX_SHAPES, cosine=APPROX_COSINE):
+    """Phase 3c: the approximate top-k kernel against its plain version at
+    every shape, Euclidean, and at ``cosine``'s shapes cosine. Returns
+    {label: numbers}."""
+    out = {}
+    res = approx_topk.kernel_resources()
+    for label, B, n, k, rows in shapes:
+        out[label] = measure_approx(device, label, B, n, k, rows,
+                                    resources=approx_resources(res, n, k))
+        torch.cuda.empty_cache()
+    for label, B, n, k, rows in shapes:
+        if label in cosine:
+            out[f"{label}, cosine"] = measure_approx(
+                device, label, B, n, k, rows, DistanceMeasure.Cosine,
+                approx_resources(res, n, k))
+            torch.cuda.empty_cache()
+    return out
+
+
+def approx_on_real_inputs(device, g, query_dev, label,
+                          measure=DistanceMeasure.Euclidean, chunk=8192):
+    """The approximate top-k kernel against its plain version on a path's
+    own seeding inputs, on each shard of ``g`` resident on the card: each
+    dense-seeded merge's first chunk (``chunk`` of layer l's points against
+    layer l+1's representatives at k = 32, as ``build/merge.py`` seeds them,
+    on the graph as built) and each tile of ``query_dev``'s tile plan
+    against the fused index's representatives at the benchmark's
+    ``num_seeds`` (the padded last tile included; none without an index).
+    Ids equal and distances bit-equal (cosine: within 2 ulp), else it
+    raises. Its launches are not the path's: call it after the path's
+    counts are read. Returns the shapes checked, differing ids, max ulp."""
+    tol = 0 if measure == DistanceMeasure.Euclidean else 2
+    shards = [s for s in g._shards
+              if s.graph is not None and s.base_dev is not None]
+    f32 = torch.float32
+    cases = []
+    for shard in shards:
+        base, base_sq, tr = shard.base_dev, shard.base_sq, shard.graph.translation
+        for layer in range(len(tr) - 1):
+            rows = (tr[layer][:chunk].long() if layer else
+                    torch.arange(min(chunk, base.shape[0]), device=base.device))
+            reps = tr[layer + 1].long()
+            cases.append((f"merge layer {layer}", base[rows].to(f32),
+                          base_sq[rows], base[reps].to(f32), base_sq[reps],
+                          min(32, reps.shape[0])))
+        index = shard.fused_index
+        if index is None:
+            continue
+        for lo, rows, tile in fused_mod.tile_plan(query_dev.shape[0], chunk, device):
+            q = fused_mod.pad_rows(query_dev[lo:lo + rows], tile).to(f32)
+            cases.append((f"query tile {lo}", q, torch.sum(q * q, dim=-1),
+                          index.rep_vecs, index.rep_sq, QKW["num_seeds"]))
+    shapes, differing, max_ulp = [], 0, 0
+    for what, q, q_sq, c, c_sq, k in cases:
+        dot = q @ c.T
+        d, p = approx_topk.approx_smallest_k(dot, q_sq, c_sq, k, measure)
+        want_d, want_p = approx_topk.approx_smallest_k_plain(
+            finish(dot, q_sq[:, None], c_sq[None, :], measure), k)
+        ids = int((p != want_p).sum())
+        ulp = int((d.view(torch.int32).long()
+                   - want_d.view(torch.int32).long()).abs().max())
+        if ids or ulp > tol:
+            raise AssertionError(f"approx top-k on {label}'s {what} ({tuple(dot.shape)}"
+                                 f", k={k}, {measure.name}) differs from its plain "
+                                 f"version: {ids} ids, distances up to {ulp} ulp")
+        shapes.append([*dot.shape, k])
+        differing, max_ulp = differing + ids, max(max_ulp, ulp)
+        del dot
+    out = {"shards": f"{len(shards)} of {len(g._shards)}", "inputs": len(shapes),
+           "shapes": sorted({tuple(s) for s in shapes}), "differing": differing,
+           "max_ulp": max_ulp}
+    print(f"approx top-k on {label}'s own seeding inputs ({measure.name}; "
+          f"resident shards {out['shards']}): {len(shapes)} inputs, shapes "
+          f"(B, n, k) {out['shapes']} | differing ids {differing}, distances "
+          f"max {max_ulp} ulp", flush=True)
+    return out
+
+
 def fused_call(g, query_dev, point, route=None, k=K_QUERY):
     """One fused query of shard 0 at ``point`` with the smoke's knobs, as
     ``GGNN.query`` makes it, through ``route`` (None: CUDA graphs on the
-    card; ``graphs.EAGER``: the host-stepped plain version)."""
+    card; ``graphs.EAGER``: the host-stepped plain version), seeded as
+    ``GGNN.query`` seeds by default (the TPU's approximate top-k)."""
     shard = g._shards[0]
     kw = {n: v for n, v in QKW.items() if n != "engine"}
     return fused_mod.fused_query(
         query_dev, shard.fused_index, shard.base_dev, k, point["tau"],
         point["iters"], g._measure, base_sq=shard.base_sq,
-        pops_per_iter=point["P"], route=route, **kw)
+        pops_per_iter=point["P"], route=route, seed_approx=True, **kw)
 
 
 def row_call(g, query_dev, point, route=None, k=K_QUERY):
@@ -694,27 +914,43 @@ def profile_call(device, fn, label, tiles=1):
     or a copy (the union of their spans in the trace), its kernel count, the
     5 kernels (by name) with the most device ms, the adjacency and the
     dedup kernels' launches and device ms -- what tells a slower call's
-    host from its device -- and its host syncs per query tile (the trace's
+    host from its device --, the approximate top-k's, the device ms of the
+    kernels launched inside each of the fused tile's profiler ranges
+    (``seed``, ``walk``, ``rerank``: matched to the ranges through their
+    launches' correlation ids), and its host syncs per query tile (the trace's
     ``aten::_local_scalar_dense`` events, a tensor read on the host, and
     the walks' live-count reads), with the graphs captured so far and the
-    bytes of their pools. None on the CPU rehearsal, which has no device
-    trace."""
+    bytes of their pools. The profiler runs a warm-up step (one more call,
+    traced and dropped) before the step it keeps. The approximate top-k's
+    launches counted by its wrapper in that call stand beside the trace's,
+    with each ``seed`` range's kernels of it and its launch calls that the
+    trace holds no device record for. None on the CPU rehearsal, which has
+    no device trace."""
     if device.type != "cuda":
         return None
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     _sync(device)
-    reads = graphs.stats()["live_reads"]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        _sync(device)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    reads = graphs.stats()["live_reads"] - reads
     with tempfile.TemporaryDirectory(prefix="ggnn_smoke_trace_") as tmp:
-        prof.export_chrome_trace(str(Path(tmp) / "trace.json"))
-        events = json.loads((Path(tmp) / "trace.json").read_text())["traceEvents"]
+        path = Path(tmp) / "trace.json"
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: p.export_chrome_trace(str(path))
+                     ) as prof:
+            fn()
+            _sync(device)
+            prof.step()
+            reads = graphs.stats()["live_reads"]
+            counted = approx_topk.launches
+            t0 = time.perf_counter()
+            fn()
+            _sync(device)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            counted = approx_topk.launches - counted
+            reads = graphs.stats()["live_reads"] - reads
+            prof.step()
+        events = json.loads(path.read_text())["traceEvents"]
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
     busy_us, end = 0.0, float("-inf")
@@ -728,12 +964,23 @@ def profile_call(device, fn, label, tiles=1):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     adj = [e["dur"] for e in kernels if e["name"].startswith("adjacency_dot")]
     dedup = [e["dur"] for e in kernels if "beam_dedup_kernel" in e["name"]]
+    approx = [e["dur"] for e in kernels if "approx_topk_kernel" in e["name"]]
+    ranges = {name: range_device_ms(events, name)
+              for name in ("seed", "walk", "rerank")}
+    seed_ranges = approx_by_seed_range(events)
     syncs = sum(1 for e in events if e.get("name") == "aten::_local_scalar_dense")
     st = graphs.stats()
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
            "busy_share": busy_us / 1e3 / wall_ms, "kernels": len(kernels),
            "adjacency_launches": len(adj), "adjacency_ms": sum(adj) / 1e3,
            "dedup_launches": len(dedup), "dedup_ms": sum(dedup) / 1e3,
+           "approx_topk_launches": len(approx),
+           "approx_topk_launches_counted": counted,
+           "approx_topk_ms": sum(approx) / 1e3,
+           "seed_ranges_approx_unrecorded": seed_ranges,
+           "ranges_ms": {k: v[0] for k, v in ranges.items()},
+           "ranges_ms_per_tile": {k: v[0] / tiles for k, v in ranges.items()},
+           "ranges_kernels": {k: v[1] for k, v in ranges.items()},
            "host_syncs_per_tile": syncs / tiles,
            "live_reads_per_tile": reads / tiles,
            "graphs_captured": st["captures"], "graphs_cached": st["graphs"],
@@ -744,7 +991,14 @@ def profile_call(device, fn, label, tiles=1):
           f"under the profiler | device busy {out['device_busy_ms']:.3f} ms "
           f"({out['busy_share']:.3f}) in {len(kernels)} kernels | adjacency "
           f"kernel {len(adj)} launches, {out['adjacency_ms']:.3f} ms | dedup "
-          f"kernel {len(dedup)} launches, {out['dedup_ms']:.3f} ms | host "
+          f"kernel {len(dedup)} launches, {out['dedup_ms']:.3f} ms | approx "
+          f"top-k kernel {len(approx)} launches in the trace ({counted} counted "
+          f"by its wrapper; per seed range [its launches, launch calls without "
+          f"a device record] {json.dumps(seed_ranges)}), "
+          f"{out['approx_topk_ms']:.3f} ms "
+          f"| device ms by range (kernels) "
+          f"{json.dumps({k: [round(v[0], 3), v[1]] for k, v in ranges.items()})}"
+          f", per tile {json.dumps({k: round(v, 3) for k, v in out['ranges_ms_per_tile'].items()})} | host "
           f"syncs per tile {out['host_syncs_per_tile']:.2f} (live-count reads "
           f"{out['live_reads_per_tile']:.2f}) over {tiles} tiles | graphs "
           f"captured so far {st['captures']}, cached {st['graphs']} in "
@@ -754,20 +1008,60 @@ def profile_call(device, fn, label, tiles=1):
     return out
 
 
+def range_device_ms(events, name):
+    """Device ms and count of the kernels, copies and sets launched inside
+    the profiler ranges called ``name`` (``torch.profiler.record_function``)
+    of a Chrome trace's ``events``: the runtime calls inside a range's span
+    name the device work by their correlation ids."""
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") == name]
+    corr = {e["args"]["correlation"] for e in events
+            if str(e.get("cat", "")).startswith("cuda_")
+            and "correlation" in e.get("args", {})
+            and any(a <= e["ts"] <= b for a, b in spans)}
+    work = [e["dur"] for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+            and e.get("args", {}).get("correlation") in corr]
+    return sum(work) / 1e3, len(work)
+
+
+def approx_by_seed_range(events):
+    """For each ``seed`` range of a Chrome trace's ``events``, in order: the
+    approximate top-k kernels launched inside it, and its runtime launch
+    calls whose correlation id no device record carries (a kernel the
+    trace lost)."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "user_annotation" and e.get("name") == "seed")
+    device = {e["args"].get("correlation"): e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    calls = [e for e in events if str(e.get("cat", "")).startswith("cuda_")
+             and "Launch" in e.get("name", "")]
+    out = []
+    for a, b in spans:
+        inside = [device.get(e["args"].get("correlation"))
+                  for e in calls if a <= e["ts"] <= b]
+        out.append([sum(1 for d in inside if d is not None
+                        and "approx_topk_kernel" in d["name"]),
+                    sum(1 for d in inside if d is None)])
+    return out
+
+
 def zero_launches():
     """Every kernel's launch counts to 0 (just before a path runs)."""
     adjacency.launches = adjacency.launches_nibbles = 0
     beam.launches = beam.launches_compact = 0
+    approx_topk.launches = 0
 
 
 def launches_now():
     """Every kernel's launches since :func:`zero_launches`: the adjacency
     kernel's (and those in int4 mode), the dedup kernel's alone and fused
-    with the compaction."""
+    with the compaction, the seeding's approximate top-k's."""
     return {"adjacency_dot": adjacency.launches,
             "adjacency_dot_nibbles": adjacency.launches_nibbles,
             "beam_dedup": beam.launches - beam.launches_compact,
-            "beam_dedup_compact": beam.launches_compact}
+            "beam_dedup_compact": beam.launches_compact,
+            "approx_topk": approx_topk.launches}
 
 
 def _minus(a, b):
@@ -909,6 +1203,10 @@ def main_path(device, n=N, nq=NQ):
     _launched(counts_queries["adjacency_dot"], "the fused queries", device)
     _dedup_launched(counts_build, "the build", device)
     _dedup_launched(counts_queries, "the fused queries", device)
+    _launched(counts_build["approx_topk"], "the build's merges", device,
+              "the approximate top-k kernel")
+    _launched(counts_queries["approx_topk"], "the fused queries' seeding",
+              device, "the approximate top-k kernel")
     print(f"operating point: {json.dumps(best)} | kernel launches: build "
           f"{json.dumps(counts_build)}, queries {json.dumps(counts_queries)}",
           flush=True)
@@ -917,6 +1215,7 @@ def main_path(device, n=N, nq=NQ):
     identity = graph_vs_eager(device, "fused (group 1)",
                               lambda r: fused_call(g, query_dev, best, r))
     real = kernel_on_real_anchors(device, g, query_dev, best, "group 1")
+    approx_real = approx_on_real_inputs(device, g, query_dev, "the fused path")
     profile = profile_call(device, lambda: g.query(
         query_dev, K_QUERY, best["tau"], best["iters"],
         **dict(QKW, pops_per_iter=best["P"])), "fused query",
@@ -924,7 +1223,8 @@ def main_path(device, n=N, nq=NQ):
     mix = batch_mix(device, g, query_dev, best)
     summary = {"launches": launches_total, "build_s": build_s, "bf_s": bf_s,
                "counts": {"build": counts_build, "queries": counts_queries},
-               "real": real, "profile": profile, "graph_vs_eager": identity,
+               "real": real, "approx_real": approx_real, "profile": profile,
+               "graph_vs_eager": identity,
                "batch_mix": mix,
                "graphs_captured_build":
                    g.last_build_stats["shards"][0]["graphs_captured"], **best}
@@ -1044,7 +1344,10 @@ def other_build(device, label, n, nq, start, **build_kw):
     print(f"{label}: {json.dumps(best)} | kernel launches in the build "
           f"{json.dumps(counts)} | build peak device memory "
           f"{json.dumps(build_peak)}", flush=True)
-    return (counts, {"build_s": build_s, "build_peak": build_peak, **best},
+    approx_real = (approx_on_real_inputs(device, g, query_dev, f"the {label} build")
+                   if build_kw.get("dense_seed_merge", True) else None)
+    return (counts, {"build_s": build_s, "build_peak": build_peak,
+                     "approx_real": approx_real, **best},
             g.last_build_stats["shards"][0])
 
 
@@ -1354,6 +1657,8 @@ def shards_path(device, n=N_SHARDED, n_shard=N_SHARD, nq=NQ):
         print(f"sharded: rotated and all-resident ids identical through graphs "
               f"(a shard staged in is copied into the buffers an evicted one left) "
               f"| graphs {graphs.stats()}", flush=True)
+        approx_real = approx_on_real_inputs(device, g, query_dev,
+                                            "the sharded path")
         g.set_working_directory(work / "graph")
         t0 = time.perf_counter()
         g.store()
@@ -1387,7 +1692,8 @@ def shards_path(device, n=N_SHARDED, n_shard=N_SHARD, nq=NQ):
             "load_s": load_s, "tier_stats": stats, "tier_stats_sweep": in_sweep,
             "sweep_s": sweep_s, "rotated_routes": routes,
             "launches_build": launches_build, "launches_query": launches_query,
-            "counts": {"build": counts_build, "queries": counts_query}}
+            "counts": {"build": counts_build, "queries": counts_query},
+            "approx_real": approx_real}
 
 
 def devices_path(device, n=N_DEVICES, nq=NQ):
@@ -1483,6 +1789,7 @@ def devices_path(device, n=N_DEVICES, nq=NQ):
           f"whole query through the host merge {host_ms:.3f} ms "
           f"({nq / (host_ms * 1e-3):.1f} QPS) | kernel launches: build "
           f"{launches_build}, queries {launches_query}", flush=True)
+    approx_real = approx_on_real_inputs(device, g, query_dev, "the two-slot path")
     g.close()
     return {**best, "build_s": build_s, "build_wall_s": stats["wall_time_s"],
             "build_sum_s": stats["sum_time_s"], "build_s_per_shard": per_shard,
@@ -1491,7 +1798,7 @@ def devices_path(device, n=N_DEVICES, nq=NQ):
             "host_merge_ms": host_merge_ms, "host_route_ms": host_ms,
             "launches_build": launches_build, "launches_query": launches_query,
             "counts": {"build": counts_build, "queries": counts_query},
-            "graphs_captured_build": captured}
+            "graphs_captured_build": captured, "approx_real": approx_real}
 
 
 def cli_path(device, n=N_CLI, nq=NQ_CLI, n_shard=CLI_SHARD):
@@ -1594,6 +1901,8 @@ def measures_path(device, n=N_MEASURES, nq=NQ):
         _launched(res["launches_queries"], f"the {label} fused queries", device)
         _dedup_launched(counts_build, f"the {label} build", device)
         _dedup_launched(counts_queries, f"the {label} fused queries", device)
+        res["approx_real"] = approx_on_real_inputs(device, g, query_dev,
+                                                   f"the {label} path", measure)
         print(f"{label}: {json.dumps(res)}", flush=True)
         g.close()
         out[label] = res
@@ -1702,27 +2011,73 @@ def headline_path(device, n=N_HEADLINE, nq=NQ_HEADLINE):
                   "the dedup kernel")
         _launched(stats["dedup_launches_queries"], "the headline queries",
                   device, "the dedup kernel")
+        _launched(stats["approx_launches_build"], "the headline build", device,
+                  "the approximate top-k kernel")
+        _launched(stats["approx_launches_queries"], "the headline queries",
+                  device, "the approximate top-k kernel")
         dedup = counts["beam_dedup"] + counts["beam_dedup_compact"]
         if (stats["launches_build"] + stats["launches_queries"] != launches
                 or stats["dedup_launches_build"]
-                + stats["dedup_launches_queries"] != dedup):
+                + stats["dedup_launches_queries"] != dedup
+                or stats["approx_launches_build"]
+                + stats["approx_launches_queries"] != counts["approx_topk"]):
             raise AssertionError("headline: kernel launches outside the build and "
                                  "the queries")
-        # the operating point once more, under the profiler, and the kernel on
-        # its real anchors (launches made after the path's counts were read)
+        stats["digest"] = graph_digest(g)
+        print(f"headline graph digest (SHA-256 of the neighbour lists): "
+              f"{stats['digest']}", flush=True)
+        # every swept point again with exact and approximate seeds in turns
+        # (bench_torch's timing), then the operating point under the profiler
+        # with each, and the kernel on its real anchors (launches made after
+        # the path's counts were read)
+        query_dev = torch.from_numpy(query).to(device)
+        stats["seeds"] = seeds_sweep(g, query_dev, nq, stats["points"],
+                                     Evaluator(base, query, gt_ids,
+                                               k_query=K_QUERY))
         d = result["detail"]
         point = {"tau": d["tau_query"], "iters": d["max_iterations"],
                  "P": d["pops_per_iter"]}
-        query_dev = torch.from_numpy(query).to(device)
-        stats["profile"] = profile_call(device, lambda: g.query(
-            query_dev, K_QUERY, point["tau"], point["iters"],
-            **dict(QKW, pops_per_iter=point["P"])), "headline fused query",
-            tiles=-(-nq // 8192))
+        for approx in (True, False):
+            key = "profile" if approx else "profile_exact_seeds"
+            stats[key] = profile_call(device, lambda: g.query(
+                query_dev, K_QUERY, point["tau"], point["iters"],
+                **dict(QKW, pops_per_iter=point["P"], seed_approx=approx)),
+                f"headline fused query (seed_approx={approx})",
+                tiles=-(-nq // 8192))
         stats["real"] = kernel_on_real_anchors(device, g, query_dev, point,
                                                "headline")
+        stats["approx_real"] = approx_on_real_inputs(device, g, query_dev,
+                                                     "the headline")
     finally:
         g.close()
     return result, dict(stats, peak_memory_run=peak, counts=counts)
+
+
+def seeds_sweep(g, query_dev, nq, points, evaluator):
+    """Each swept point with ``seed_approx=False`` then ``True``, timed as
+    ``bench_torch`` times a point; whether c@1 with approximate seeds
+    comes within 0.003 of exact seeds' is printed, not enforced (a miss is
+    a finding). Returns [{point, exact: {qps, c1, c10}, approx: {...}}]."""
+    out = []
+    for p in points:
+        row = {"tau": p["tau"], "iters": p["iters"], "P": p["P"]}
+        for approx in (False, True):
+            got = []
+            bench_torch._run_config(
+                g, evaluator, query_dev, nq, K_QUERY, p["tau"], p["iters"],
+                dict(QKW, seed_approx=approx), None, pops_per_iter=p["P"],
+                points=got)
+            row["approx" if approx else "exact"] = {
+                k: got[0][k] for k in ("qps", "c1", "c10")}
+        row["c1_within_0.003"] = abs(row["approx"]["c1"]
+                                     - row["exact"]["c1"]) <= 0.003
+        print(f"headline seeds tau={p['tau']} iters={p['iters']} P={p['P']}: "
+              f"exact c@1={row['exact']['c1']:.4f} qps={row['exact']['qps']:.1f}"
+              f" | approximate c@1={row['approx']['c1']:.4f} qps="
+              f"{row['approx']['qps']:.1f} | c@1 within 0.003: "
+              f"{row['c1_within_0.003']}", flush=True)
+        out.append(row)
+    return out
 
 
 def released_check(device, allocated):
@@ -1761,17 +2116,20 @@ def run(device):
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     t0 = _phase("device", t0)
 
-    # both kernels' sources compile at once, one nvcc each
-    with ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(m.build_kernel) for m in (adjacency, beam)]
+    # the kernels' sources compile at once, one nvcc each
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(m.build_kernel)
+                  for m in (adjacency, beam, approx_topk)]
         build_s = [f.result() for f in builds]
     print(f"kernel build: {build_s[0]:.2f} s | library {adjacency.library_path()}"
           f" | dedup kernel build {build_s[1]:.2f} s | library "
-          f"{beam.library_path()}", flush=True)
+          f"{beam.library_path()} | approx top-k kernel build {build_s[2]:.2f} s "
+          f"| library {approx_topk.library_path()}", flush=True)
     # registers, shared and local (spill) bytes per kernel, and the I2F
     # count of its SASS, from the toolkit's cuobjdump
     resources = {}
-    for label, m in (("adjacency_dot", adjacency), ("beam_dedup", beam)):
+    for label, m in (("adjacency_dot", adjacency), ("beam_dedup", beam),
+                     ("approx_topk", approx_topk)):
         res = m.kernel_resources()
         resources[label] = "not available" if res is None else {
             k: {f: r[f] for f in ("REG", "SHARED", "LOCAL", "STACK", "I2F")
@@ -1789,6 +2147,8 @@ def run(device):
     t0 = _phase("kernel vs plain", t0)
     dedup = check_dedup(device)
     t0 = _phase("dedup kernel vs plain", t0)
+    approx = check_approx(device)
+    t0 = _phase("approx top-k kernel vs plain", t0)
 
     allocated = torch.cuda.memory_allocated(device)
     summary, ctx = main_path(device)
@@ -1936,6 +2296,38 @@ def run(device):
             "launches_per_path": per_path(name),
             "resources": resources["beam_dedup"],
         })
+    # the seeding's approximate top-k, at its callers' shapes; the top-level
+    # numbers at the build merge's (the headline build's seeding). No
+    # PyTorch call computes the binned selection: ``library_ms`` is the
+    # current exact route's at the same shape (``finish`` + ``torch.topk``
+    # through ``smallest_k_positions``, the exact set, not the binned one)
+    kernels.append({
+        "name": "approx_topk",
+        "route": "cuda",
+        "source": "ggnn_torch/csrc/approx_topk.cu",
+        # no Pallas kernel: XLA's TPU ApproxTopK of jax.lax.approx_min_k
+        "replaces": "ggnn_tpu/query/fused.py:758, ggnn_tpu/build/merge.py:108",
+        "launches": sum(per_path("approx_topk").values()),
+        **numbers(approx["merge seeding"], ("library_ms", "differing",
+                                           "max_ulp", "recall")),
+        "library": "finish + torch.topk (smallest_k_positions): the exact set",
+        "shapes": {label: numbers(r, ("library_ms", "differing", "max_ulp",
+                                      "recall", "bins", "shared_bytes"))
+                   for label, r in approx.items()},
+        # the same check on each path's own seeding inputs
+        "real_inputs": {"fused": summary["approx_real"],
+                        "f32_fetch": f32["approx_real"],
+                        "sharded": sharded["approx_real"],
+                        "devices": devices["approx_real"],
+                        "cosine": measures["cosine"]["approx_real"],
+                        "uint8": measures["uint8"]["approx_real"],
+                        "headline": headline_stats["approx_real"]},
+        "launches_per_path": dict(
+            per_path("approx_topk"),
+            headline_build=headline_stats["approx_launches_build"],
+            headline_queries=headline_stats["approx_launches_queries"]),
+        "resources": resources["approx_topk"],
+    })
     # the card's line again beside the numbers, should the head of the log
     # be cut
     print(smi[0], flush=True)

@@ -7,8 +7,9 @@ own self-link; on layer 0 the 1-NN distance is recorded for the nn1
 statistics. Two seedings:
 
   * dense (``dense_seed=True``): the distance-nearest representatives of
-    layer ``layer_btm+1`` (one dense f32 scan per chunk) plus the node
-    itself enter the beam, and only ``layer_btm`` is walked;
+    layer ``layer_btm+1`` (one dense f32 scan per chunk, picked as the
+    TPU's ``approx_min_k`` picks them: ``ops/approx_topk.py``) plus the
+    node itself enter the beam, and only ``layer_btm`` is walked;
   * the reference's hierarchic descent: the node's top-layer segment seeds
     the beam, which descends layer by layer (ids remapped through
     ``selection``), walking each layer, and fetches the node itself at
@@ -30,9 +31,8 @@ from __future__ import annotations
 import torch
 
 from ggnn_torch.config import MERGE_MAX_ITERATIONS, DistanceMeasure, GraphConfig
+from ggnn_torch.ops.approx_topk import dist_approx_smallest_k
 from ggnn_torch.ops.beam import beam_init, beam_insert, beam_transform
-from ggnn_torch.ops.distance import dist_block
-from ggnn_torch.ops.topk import smallest_k_positions
 from ggnn_torch.ops.traverse import best_first_search, gather_dists, seed_beam
 from ggnn_torch.query.fused import fused_best_first, fused_best_first_compacted
 from ggnn_torch.utils import graphs
@@ -81,11 +81,12 @@ def _merge_chunk(n, base, base_sq, neighbors, selection, translation,
 
     if reps is not None:
         # dense seeding: the best ``num_seeds`` representatives of layer
-        # btm+1 (exact top-k) enter the beam directly
+        # btm+1 by the TPU's approximate top-k, as the JAX package's
+        # ``approx_min_k`` (no switch there either), enter the beam directly
         rep_local, rep_vecs, rep_sq = reps
-        seed_d_all = dist_block(q_vecs, rep_vecs, measure, q_sq=q_sq, c_sq=rep_sq)
-        seed_d, pos = smallest_k_positions(
-            seed_d_all, min(num_seeds, rep_vecs.shape[0]))
+        seed_d, pos = dist_approx_smallest_k(
+            q_vecs, rep_vecs, min(num_seeds, rep_vecs.shape[0]), measure,
+            q_sq=q_sq, c_sq=rep_sq)
         seed_ids = rep_local[pos]
         # a node that is itself a representative would enter twice (seed +
         # own insert below), breaking beam_insert's unique-ids contract

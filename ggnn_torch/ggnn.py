@@ -290,8 +290,10 @@ class GGNN:
 
     # engine-specific query kwargs: the engines that take each, and its
     # default. Passing one that does not apply to the selected engine raises
-    # instead of being silently ignored (``seed_approx`` is accepted for API
-    # parity: seeds are always exact top-k here).
+    # instead of being silently ignored. ``seed_approx`` (the JAX package's
+    # default, True) picks the fused seeds as the TPU's ``approx_min_k``
+    # does, on every route: one slot, the device and the host merge, the
+    # out-of-core rotation.
     _ENGINE_KWARGS = {
         "pops_per_iter": (("row", "fused"), 8),
         "fetch_cap_fraction": (("row",), 0.75),
@@ -867,6 +869,7 @@ class GGNN:
                     chunk=kw["chunk"], pops_per_iter=kw["pops_per_iter"],
                     num_seeds=kw["num_seeds"], rerank=kw["rerank"], cap=kw["cap"],
                     compact_levels=kw["compact_levels"], width=kw["width"],
+                    seed_approx=kw["seed_approx"],
                 )
             else:
                 ids, dists = ann_query(
@@ -920,7 +923,8 @@ class GGNN:
                 k_query, tau_query, max_iterations, measure,
                 num_seeds=kw["num_seeds"], rerank=kw["rerank"], cap=kw["cap"],
                 width=kw["width"], chunk=kw["chunk"],
-                compact_levels=kw["compact_levels"], **common)
+                compact_levels=kw["compact_levels"],
+                seed_approx=kw["seed_approx"], **common)
         return sharded_query(
             bases, [s.graph for s in shards], self._cfg, query, k_query,
             tau_query, max_iterations, measure,

@@ -1,1 +1,1 @@
-"""Tensor primitives and the hand-written kernel of the port."""
+"""Tensor primitives and the hand-written kernels of the port."""

@@ -159,11 +159,12 @@ def sharded_fused_query(bases, indexes, query, KQuery: int, tau_query: float,
                         num_seeds: int = 16, rerank: int | None = None,
                         cap: int | None = None, width: int | None = None,
                         chunk: int = 8192, compact_levels: int = 0,
-                        device=None):
+                        seed_approx: bool = False, device=None):
     """The fused engine over one index sharded across devices: shard ``i``
     walks ``indexes[i]`` on its own device with exactly the kwargs given
-    (None takes ``fused_query``'s default), the partials merge on
-    ``device``. Returns (ids [Q, KQuery] global, dists)."""
+    (None takes ``fused_query``'s default; ``seed_approx``: the TPU's
+    approximate seeds), the partials merge on ``device``. Returns (ids [Q,
+    KQuery] global, dists)."""
     devices = [b.device for b in bases]
     qs = per_device(query, devices)
     base_sqs = base_sqs or [None] * len(bases)
@@ -173,7 +174,8 @@ def sharded_fused_query(bases, indexes, query, KQuery: int, tau_query: float,
             qs[devices[i]], indexes[i], bases[i], KQuery, tau_query,
             max_iterations, measure, base_sq=base_sqs[i], chunk=chunk,
             pops_per_iter=pops_per_iter, num_seeds=num_seeds, rerank=rerank,
-            cap=cap, compact_levels=compact_levels, width=width)
+            cap=cap, compact_levels=compact_levels, width=width,
+            seed_approx=seed_approx)
 
     partials = _walk_per_device([job(i) for i in range(len(bases))], devices)
     return merge_over_devices(partials, KQuery, bases[0].shape[0],

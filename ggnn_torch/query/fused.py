@@ -11,7 +11,9 @@ The engine restructures the *memory layout*, not the search semantics:
   * seeding scores the layer-1 representatives (translation[1], the WRS
     cluster heads the build already selected) against the query tile in one
     dense f32 product, replacing the reference's hierarchy descent
-    (query_kernels.cu:149 seeds from translation[L-1]);
+    (query_kernels.cu:149 seeds from translation[L-1]); with
+    ``seed_approx`` the seeds are the TPU's approximate top-k, one launch of
+    the kernel in ``ops/approx_topk.py`` after the product;
   * the best-first walk is the flagged-beam traversal (pop -> expand ->
     filter -> dedup -> insert under ``best + xi``), with the reference's
     dynamic slack tightening (query_layer.cu:58-63); on the card its steps
@@ -44,10 +46,12 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ggnn_torch.config import DistanceMeasure, GraphConfig
 from ggnn_torch.graph import Graph
 from ggnn_torch.ops.adjacency import adjacency_dot
+from ggnn_torch.ops.approx_topk import dist_approx_smallest_k
 from ggnn_torch.ops.beam import (
     BeamState,
     Slack,
@@ -693,10 +697,13 @@ def _fused_query_tile(q_vecs, index: FusedIndex, base, base_sq, tau, *,
                       measure: DistanceMeasure, max_iterations: int,
                       pops_per_iter: int, num_seeds: int, rerank: int,
                       cap: int, compact_levels: int, route=None,
-                      rows: int | None = None):
+                      rows: int | None = None, seed_approx: bool = False):
     """One tile's seed, walk and re-rank; only its first ``rows`` rows are
     queries (all by default), the rest pad it to its planned size: they
-    are not seeded, so their walk is dead from the first pop."""
+    are not seeded, so their walk is dead from the first pop. Each stage
+    runs under a ``torch.profiler`` range: ``seed``, ``walk``, ``rerank``.
+    ``seed_approx``: the seeds are ``jax.lax.approx_min_k``'s as the TPU
+    computes it (``ops/approx_topk.py``), else the exact top-k."""
     B = q_vecs.shape[0]
     P = pops_per_iter
     q_vecs = q_vecs.to(torch.float32)
@@ -713,32 +720,41 @@ def _fused_query_tile(q_vecs, index: FusedIndex, base, base_sq, tau, *,
 
     state = beam_init(B, width, xi0, vis_size, device=q_vecs.device)
 
-    # seed: dense rep scan, the best num_seeds enter the beam (exact top-k)
-    seed_d_all = dist_block(q_vecs, index.rep_vecs, measure, q_sq=q_sq,
-                            c_sq=index.rep_sq)
-    seed_d, pos = smallest_k_positions(seed_d_all, num_seeds)
-    seed_ids = index.rep_ids[pos]
-    no_crit = torch.full((B,), EMPTY_DIST, device=q_vecs.device)
-    real = (None if rows is None or rows == B
-            else torch.arange(B, device=q_vecs.device) < rows)
-    state = beam_insert(state, seed_ids, seed_d, real, criteria=no_crit)
+    # seed: dense rep scan, the best num_seeds enter the beam
+    with record_function("seed"):
+        if seed_approx:
+            seed_d, pos = dist_approx_smallest_k(
+                q_vecs, index.rep_vecs, num_seeds, measure, q_sq=q_sq,
+                c_sq=index.rep_sq)
+        else:
+            seed_d_all = dist_block(q_vecs, index.rep_vecs, measure, q_sq=q_sq,
+                                    c_sq=index.rep_sq)
+            seed_d, pos = smallest_k_positions(seed_d_all, num_seeds)
+            del seed_d_all  # [B, n]: not held through the walk
+        seed_ids = index.rep_ids[pos]
+        no_crit = torch.full((B,), EMPTY_DIST, device=q_vecs.device)
+        real = (None if rows is None or rows == B
+                else torch.arange(B, device=q_vecs.device) < rows)
+        state = beam_insert(state, seed_ids, seed_d, real, criteria=no_crit)
 
     R = min(rerank, width)
-    result_i, _ = _best_first_phases(
-        state, q_vecs, q_sq, index, measure,
-        steps=-(-max_iterations // P), k_best=k_query, P=P, cap=cap,
-        k_out=R, compact_levels=compact_levels, slack=slack, route=route,
-        live_rows=rows,
-    )
+    with record_function("walk"):
+        result_i, _ = _best_first_phases(
+            state, q_vecs, q_sq, index, measure,
+            steps=-(-max_iterations // P), k_best=k_query, P=P, cap=cap,
+            k_out=R, compact_levels=compact_levels, slack=slack, route=route,
+            live_rows=rows,
+        )
 
     # exact re-rank of the top survivors (one small f32 gather)
-    safe = result_i.clamp_min(0).long()
-    vecs = base[safe].to(torch.float32)  # [B, R, D]
-    dot = torch.einsum("bd,brd->br", q_vecs, vecs)
-    d = finish(dot, q_sq[:, None], base_sq[safe], measure)
-    d = torch.where(result_i == EMPTY_ID, EMPTY_DIST, d)
-    d, i = sort_by_dist(d, result_i)
-    return i[:, :k_query], d[:, :k_query]
+    with record_function("rerank"):
+        safe = result_i.clamp_min(0).long()
+        vecs = base[safe].to(torch.float32)  # [B, R, D]
+        dot = torch.einsum("bd,brd->br", q_vecs, vecs)
+        d = finish(dot, q_sq[:, None], base_sq[safe], measure)
+        d = torch.where(result_i == EMPTY_ID, EMPTY_DIST, d)
+        d, i = sort_by_dist(d, result_i)
+        return i[:, :k_query], d[:, :k_query]
 
 
 def fused_query(
@@ -760,6 +776,7 @@ def fused_query(
     compact_levels: int = 2,
     width: int | None = None,
     route: graphs.Route | None = None,
+    seed_approx: bool = False,
 ):
     """Query one shard through its quantized-adjacency index.
 
@@ -769,6 +786,8 @@ def fused_query(
     :func:`tile_plan`. ``route``: how the walk's loop runs
     (:mod:`ggnn_torch.utils.graphs`): by default as CUDA graphs on the card
     and eagerly on the CPU; ``graphs.EAGER`` is the plain version.
+    ``seed_approx``: pick the seeds as the TPU's ``approx_min_k`` does
+    (recall target 0.95; ``ops/approx_topk.py``) instead of the exact top-k.
 
     Returns (ids [Q, KQuery] i32, dists [Q, KQuery] f32 exact), rows sorted
     ascending, on the index's device.
@@ -809,6 +828,7 @@ def fused_query(
             max_iterations=max_iterations, pops_per_iter=P,
             num_seeds=num_seeds, rerank=rerank, cap=cap,
             compact_levels=max(0, compact_levels), route=route, rows=rows,
+            seed_approx=seed_approx,
         )
         outs.append((ids[:rows], dists[:rows]))
     return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])

@@ -3,6 +3,7 @@
 
     python3 sym_bench.py [--n 262144] [--rounds 2]
     python3 sym_bench.py --root DIR [--n 262144]
+    python3 sym_bench.py --headline [--root DIR]
 
 Builds the smoke's descent + walk graph (``chip_smoke.py`` phase 8:
 ``dense_seed_merge=False``, ``sym_mode="walk"``, k_build=48, tau_build=0.5,
@@ -27,6 +28,11 @@ repository, e.g. the parent, unpacked with ``git archive``) on that
 checkout's own sym route: the build's seconds, sym seconds, peak device
 memory and digest, to set beside this checkout's.
 
+``--headline`` only builds, once, the headline's graph instead
+(``bench_torch.py``'s: its data, k_build=48, tau_build=0.5, 2
+refinements, dense-seeded merges, bulk sym) of ``--n`` points (default
+then 1,000,000), with the checkout of ``--root`` if given.
+
 Needs a CUDA device. The last line is one JSON object with every number.
 """
 
@@ -50,13 +56,14 @@ def graph_digest(g):
     return h.hexdigest()
 
 
-def build(smoke, dev, n, record=None):
+def build(smoke, dev, n, record=None, headline=False):
     """The descent + walk build of ``n`` points inside ``record`` (a
-    context manager, or none); returns its numbers, the index and what
-    ``record`` yielded."""
+    context manager, or none), or with ``headline`` the headline's build;
+    returns its numbers, the index and what ``record`` yielded."""
     from ggnn_torch import GGNN
     from ggnn_torch.utils import graphs
 
+    kw = {} if headline else {"dense_seed_merge": False, "sym_mode": "walk"}
     base, _ = smoke.make_dataset(n, 10, d=128, seed=0)
     g = GGNN(device=dev)
     g.set_base(base)
@@ -68,8 +75,7 @@ def build(smoke, dev, n, record=None):
     t0 = time.perf_counter()
     with record if record is not None else nullcontext() as recorded:
         g.build(k_build=smoke.K_BUILD, tau_build=smoke.TAU_BUILD,
-                refinement_iterations=2, dense_seed_merge=False,
-                sym_mode="walk")
+                refinement_iterations=2, **kw)
     torch.cuda.synchronize(dev)
     out = {"build_s": time.perf_counter() - t0,
            "peak_allocated": torch.cuda.max_memory_allocated(dev),
@@ -96,11 +102,16 @@ def show(label, b):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n", type=int, default=262_144)
+    ap.add_argument("--n", type=int, default=None,
+                    help="points (262,144; 1,000,000 with --headline)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--root", default=None,
                     help="only build, with the package of this checkout")
+    ap.add_argument("--headline", action="store_true",
+                    help="only build, the headline's graph")
     args = ap.parse_args(argv)
+    if args.n is None:
+        args.n = 1_000_000 if args.headline else 262_144
     if not torch.cuda.is_available() or args.rounds < 1:
         sys.exit("sym_bench: needs a CUDA device and --rounds >= 1")
     if args.root is not None:
@@ -114,10 +125,12 @@ def main(argv=None):
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    out = {"device": smi, "n": args.n, "root": args.root}
-    if args.root is not None:
-        out["build"], _, _ = build(smoke, dev, args.n)
-        show(f"checkout {args.root}", out["build"])
+    out = {"device": smi, "n": args.n, "root": args.root,
+           "headline": args.headline}
+    if args.root is not None or args.headline:
+        out["build"], _, _ = build(smoke, dev, args.n, headline=args.headline)
+        show(f"{'headline' if args.headline else 'descent + walk'}, checkout "
+             f"{args.root or '.'}", out["build"])
         print(json.dumps(out), flush=True)
         return
 

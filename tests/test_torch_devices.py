@@ -111,7 +111,8 @@ def test_host_merge_matches_jax_host_merge(data, parts, n_shards):
         assert (ids // N_SHARD).max() == n_shards - 1  # merged from all shards
         assert np.all(np.diff(dists, axis=1) >= 0)
         assert _same_rows(ids, part["row"]) >= 0.99
-        fids, fd = g.query(query, 10, TAU, ITERS, engine="fused")
+        fids, fd = g.query(query, 10, TAU, ITERS, engine="fused",
+                           seed_approx=False)
         assert g.last_merge_route == "host"
         assert np.all(np.diff(fd, axis=1) >= 0)
         assert _same_rows(fids, part["fused"]) >= 0.99

@@ -43,7 +43,8 @@ def data(tmp_path_factory):
         g.build(k_build=K, tau_build=0.5, refinement_iterations=0)
         g.build_fused_index()
         g.store()
-        fused = g.query(query, KQ, 1.0, BUDGET, engine="fused", **FKW)
+        fused = g.query(query, KQ, 1.0, BUDGET, engine="fused",
+                        seed_approx=False, **FKW)
         row = g.query(query, KQ, 1.0, BUDGET)
     finally:
         torch.set_num_threads(n)

@@ -90,7 +90,8 @@ def test_loaded_reference_parts_answer_like_reference(parts, loaded):
     before = g.tier_stats["sidecar_reuses"]
     g.build_fused_index(group=2)
     assert g.tier_stats["sidecar_reuses"] - before == 4
-    fids, fd = g.query(parts["query"], 10, TAU, ITERS, engine="fused")
+    fids, fd = g.query(parts["query"], 10, TAU, ITERS, engine="fused",
+                       seed_approx=False)
     assert np.all(np.diff(fd, axis=1) >= 0)
     assert _same_rows(fids, parts["fused"]) >= 0.99
 

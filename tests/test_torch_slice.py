@@ -184,7 +184,7 @@ def test_end_to_end_parity(data, port, tau, iters, P, record_property):
     # brute force is exact: the port's ground truth is the reference's
     assert np.mean(gt == gt_ref) >= 0.999
     ids, _ = port.query(query, 10, tau, iters, engine="fused", pops_per_iter=P,
-                        **QKW)
+                        seed_approx=False, **QKW)
     j_ids, _ = jg.query(query, 10, tau, iters, engine="fused", pops_per_iter=P,
                         seed_approx=False, **QKW)
     c1, c10 = _c1_c10(Evaluator(base, query, gt, k_query=10), ids)
