@@ -42,10 +42,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    products, at ``APPROX_SHAPES`` (the headline's 8,192 x 30,752 tiles at
    k=8 and k=32, its padded last tile, a row below 128, an exact row of
    passes) and at three of them in cosine: ids must be equal and the
-   distances bit-equal (cosine: within 2 ulp). Prints the kernel's ms,
-   the plain version's, the exact route's (``finish`` + ``torch.topk``),
-   the bytes bound and its share, the seeds' recall against the exact
-   top-k, shared bytes and registers. The same check runs again on each
+   distances bit-equal (cosine: within 2 ulp). Prints the kernel's device
+   ms (a CUDA graph of launches, as in phase 3b) and its host path's, the
+   plain version's, the exact route's (``finish`` + ``torch.topk``), the
+   bytes bound and its share, the seeds' recall against the exact top-k,
+   the kernel the launcher took (``approx_topk.kernel_layout``: the warp
+   kernel's ring or the block kernel), rows per block, shared bytes and
+   registers. The same check runs again on each
    path's own seeding inputs once the path is done
    (``approx_on_real_inputs``: phases 4, 7, 9, 10, 12 in cosine and uint8,
    and 13): each dense-seeded merge's first chunk against its layer's
@@ -595,11 +598,12 @@ def approx_bound(B, n, k):
         "bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def approx_resources(res, n, k):
+def approx_resources(res, n, k, measure=DistanceMeasure.Euclidean):
     """Registers, local (spill) and static shared bytes of the approximate
-    top-k kernel that a launch at (n, k) runs, from ``res``
+    top-k kernel instance that a launch at (n, k) runs
+    (``approx_topk.kernel_layout``), from ``res``
     (``approx_topk.kernel_resources()``), or "not available"."""
-    tag = f"approx_topk_kernelILi{approx_topk.bins_per_pass(n, k)}EE"
+    tag = approx_topk.kernel_layout(n, k, measure=measure).template
     return next(({f: r[f] for f in ("REG", "SHARED", "LOCAL", "STACK") if f in r}
                  for name, r in (res or {}).items() if tag in name),
                 "not available")
@@ -609,8 +613,9 @@ def measure_approx(device, label, B, n, k, rows, measure=DistanceMeasure.Euclide
                    resources=None):
     """The approximate top-k kernel against its plain version on the same
     dot products (Euclidean: ids equal and distances bit-equal; cosine: ids
-    equal and distances within 2 ulp, ``rsqrtf``); the kernel's ms, the
-    plain version's (``finish`` + the op in torch), the current exact
+    equal and distances within 2 ulp, ``rsqrtf``); the kernel's device ms
+    (:func:`replay_ms`) and its host path's, the plain version's (``finish``
+    + the op in torch), the current exact
     route's (``finish`` + ``smallest_k_positions``: ``torch.topk``, the
     exact set, not the binned one), the bound and its share, the seeds'
     recall against the exact top-k on the query rows."""
@@ -642,26 +647,31 @@ def measure_approx(device, label, B, n, k, rows, measure=DistanceMeasure.Euclide
     _, exact_p = exact()
     hit = (p[:rows, :, None] == exact_p[:rows, None, :]).any(-1)
     recall = float(hit.float().mean())
-    ms, _ = time_ms(run, device)
+    ms = replay_ms(run, device)
+    host_ms, _ = time_ms(run, device)
     plain_ms, _ = time_ms(plain, device)
     library_ms, _ = time_ms(exact, device)
     del dot
     nbytes, bound_ms, bound_by = approx_bound(B, n, k)
     M = approx_topk.reduction_size(n, k)
+    lay = approx_topk.kernel_layout(n, k, measure=measure)
+    timing = (f"device: a CUDA graph of {DEDUP_LAUNCHES} launches"
+              if device.type == "cuda" else "host clock, CPU")
     print(f"approx top-k {label} ({measure.name}) B={B} n={n} k={k} rows={rows} "
           f"bins={M}: differing ids {ids_differ}, distances max {ulp} ulp (max "
           f"abs err {err:.3g}) | recall vs exact {recall:.4f} | kernel {ms:.4f} "
-          f"ms | plain {plain_ms:.4f} ms | exact route (finish + torch.topk) "
-          f"{library_ms:.4f} ms | bound {bound_ms:.4f} ms ({nbytes} B at 3.35 "
-          f"TB/s) | share of bound {bound_ms / ms:.3f} | shared bytes per "
-          f"block {approx_topk.shared_bytes(n, k)} | resources "
-          f"{json.dumps(resources)}", flush=True)
+          f"ms ({timing}) | host path {host_ms:.4f} ms | plain {plain_ms:.4f} "
+          f"ms | exact route (finish + torch.topk) {library_ms:.4f} ms | bound {bound_ms:.4f} ms ({nbytes} B at 3.35 "
+          f"TB/s) | share of bound {bound_ms / ms:.3f} | {lay.kernel} kernel, "
+          f"rows per block {lay.rows_per_block}, bins a lane {lay.bins_per_lane}"
+          f" x {lay.passes} passes, shared bytes per block {lay.shared_bytes} "
+          f"| resources {json.dumps(resources)}", flush=True)
     return {"max_abs_err": err, "differing": ids_differ, "max_ulp": ulp,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_share": bound_ms / ms, "bytes": nbytes, "recall": recall,
-            "bins": M, "shared_bytes": approx_topk.shared_bytes(n, k),
-            "resources": resources}
+            "bins": M, "kernel": lay.kernel, "rows_per_block": lay.rows_per_block,
+            "shared_bytes": lay.shared_bytes, "resources": resources}
 
 
 def check_approx(device, shapes=APPROX_SHAPES, cosine=APPROX_COSINE):
@@ -678,7 +688,7 @@ def check_approx(device, shapes=APPROX_SHAPES, cosine=APPROX_COSINE):
         if label in cosine:
             out[f"{label}, cosine"] = measure_approx(
                 device, label, B, n, k, rows, DistanceMeasure.Cosine,
-                approx_resources(res, n, k))
+                approx_resources(res, n, k, DistanceMeasure.Cosine))
             torch.cuda.empty_cache()
     return out
 
@@ -718,7 +728,7 @@ def approx_on_real_inputs(device, g, query_dev, label,
                           index.rep_vecs, index.rep_sq, QKW["num_seeds"]))
     shapes, differing, max_ulp = [], 0, 0
     for what, q, q_sq, c, c_sq, k in cases:
-        dot = q @ c.T
+        dot = approx_topk.seeding_product(q, c)  # as the seeding makes it
         d, p = approx_topk.approx_smallest_k(dot, q_sq, c_sq, k, measure)
         want_d, want_p = approx_topk.approx_smallest_k_plain(
             finish(dot, q_sq[:, None], c_sq[None, :], measure), k)
@@ -2308,11 +2318,12 @@ def run(device):
         # no Pallas kernel: XLA's TPU ApproxTopK of jax.lax.approx_min_k
         "replaces": "ggnn_tpu/query/fused.py:758, ggnn_tpu/build/merge.py:108",
         "launches": sum(per_path("approx_topk").values()),
-        **numbers(approx["merge seeding"], ("library_ms", "differing",
-                                           "max_ulp", "recall")),
+        **numbers(approx["merge seeding"], ("host_ms", "library_ms",
+                                           "differing", "max_ulp", "recall")),
         "library": "finish + torch.topk (smallest_k_positions): the exact set",
-        "shapes": {label: numbers(r, ("library_ms", "differing", "max_ulp",
-                                      "recall", "bins", "shared_bytes"))
+        "shapes": {label: numbers(r, ("host_ms", "library_ms", "differing",
+                                      "max_ulp", "recall", "bins", "kernel",
+                                      "rows_per_block", "shared_bytes"))
                    for label, r in approx.items()},
         # the same check on each path's own seeding inputs
         "real_inputs": {"fused": summary["approx_real"],

@@ -216,21 +216,99 @@ def test_kernel_route_refuses_what_it_cannot_take(kind):
         approx_topk._launch(dot, q_sq, c_sq, k, DistanceMeasure.Euclidean)
 
 
-@pytest.mark.parametrize("n, k, rb", [(30752, 8, 2), (30752, 16, 4),
-                                      (30752, 32, 8), (100, 8, 1),
-                                      (3000, 100, 8), (1000, 32, 8),
-                                      (129, 1, 1), (640, 32, 8)])
-def test_kernel_layout(n, k, rb):
-    """The kernel's per-row layout (mirrored from ``csrc/approx_topk.cu``):
-    a thread's bins in registers a pass (the template argument), the bins
-    in shared memory, and bins a multiple of the 128 lanes wherever they
-    reduce."""
+# (n, k) -> (kernel, rows per block, lanes per row, bins a lane a pass,
+# passes, tiles a batch): the seeding's three shapes, k = 1, bins not a power
+# of two times 128 (640: 5 sub-tiles), more than 1,024 bins (1,280: two
+# passes), the exact rows (n below 128, k > M, the k_query shape with passes)
+# and k above 32
+LAYOUTS = [
+    ((30752, 8), ("warp", 4, 32, 8, 1, 4)),
+    ((30752, 16), ("warp", 4, 32, 16, 1, 2)),
+    ((30752, 32), ("warp", 4, 32, 32, 1, 1)),
+    ((129, 1), ("warp", 4, 32, 4, 1, 8)),
+    ((1208, 32), ("warp", 4, 32, 32, 1, 1)),
+    ((2400, 32), ("warp", 4, 32, 32, 2, 1)),
+    ((800, 16), ("warp", 4, 32, 16, 1, 2)),
+    ((100, 8), ("block", 1, 128, 1, 1, 1)),
+    ((1000, 32), ("block", 1, 128, 8, 1, 1)),
+    ((3000, 100), ("block", 1, 128, 8, 3, 1)),
+    ((30752, 100), ("block", 1, 128, 8, 4, 1)),
+]
+
+
+@pytest.mark.parametrize("nk, want", LAYOUTS)
+def test_kernel_layout(nk, want):
+    """The launcher's choice and layout (mirrored from
+    ``csrc/approx_topk.cu``): the warp kernel for reducing rows at k <= 32,
+    4 rows a block of 32 lanes each, a lane's 4 bins of each sub-tile in
+    registers, every bin covered, a stage of ``BATCH`` 16-byte pieces a
+    lane, its ring in shared memory; unaligned rows and the rest take the
+    block kernel, its winners in shared memory; both within
+    ``MAX_SHARED_BYTES``; bins a multiple of 128 wherever they reduce."""
+    n, k = nk
     M = reduction_size(n, k)
     bins = n if k > M else M
-    assert approx_topk.bins_per_pass(n, k) == rb
-    assert rb * 128 >= min(bins, 8 * 128)
-    assert approx_topk.shared_bytes(n, k) == 8 * bins <= approx_topk.MAX_SHARED_BYTES
-    assert bins == n or bins % 128 == 0
+    lay = approx_topk.kernel_layout(n, k)
+    assert (lay.kernel, lay.rows_per_block, lay.lanes_per_row, lay.bins_per_lane,
+            lay.passes, lay.tiles_per_batch) == want
+    assert lay.bins_per_lane * lay.lanes_per_row * lay.passes >= bins
+    assert lay.shared_bytes <= approx_topk.MAX_SHARED_BYTES
+    assert lay.rows_per_block * lay.lanes_per_row == approx_topk.THREADS
+    if lay.kernel == "warp":
+        assert bins < n and bins % 128 == 0 and k <= 32
+        assert lay.shared_bytes == approx_topk.RING_BYTES == 40960
+        assert lay.tiles_per_batch * lay.bins_per_lane // 4 == approx_topk.BATCH
+        nsub = lay.bins_per_lane // 4
+        assert lay.template == f"approx_topk_kernel_warpILi{nsub}ELi0EE"
+        cos = approx_topk.kernel_layout(n, k, measure=DistanceMeasure.Cosine)
+        assert cos.template == f"approx_topk_kernel_warpILi{nsub}ELi1EE"
+        unaligned = approx_topk.kernel_layout(n, k, aligned=False)
+        assert unaligned.kernel == "block" and unaligned.shared_bytes == 8 * bins
+    else:
+        assert bins == n or k > 32
+        assert lay.shared_bytes == 8 * bins
+        assert lay.template == f"approx_topk_kernel_blockILi{lay.bins_per_lane}EE"
+
+
+# distances the key map must order: both infinities, signed zeros, a
+# denormal, negatives, NaN
+KEY_VALUES = np.array([-np.inf, -3.5, -1e-45, -0.0, 0.0, 1e-45, 1e-30, 0.25,
+                       1.0, 7.0, 3e38, np.inf, np.nan], np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_order_keys_order_as_distance_then_position(seed):
+    """Sorting by the 64-bit key is sorting by (distance, position) with
+    NaN as +inf and -0.0 equal to 0.0 -- the plain route's order (a numpy
+    lexsort on the same pairs)."""
+    rng = np.random.default_rng(seed)
+    d = rng.choice(KEY_VALUES, size=400)
+    pos = rng.permutation(1 << 20)[:400].astype(np.int64)
+    pos[:3] = [0, (1 << 31) - 1, 1 << 30]
+    keys = approx_topk.order_keys(torch.from_numpy(d), torch.from_numpy(pos))
+    assert keys.dtype == torch.int64
+    clean = np.where(np.isnan(d), np.float32(np.inf), d) + np.float32(0.0)
+    want = np.lexsort((pos, clean))
+    np.testing.assert_array_equal(np.argsort(keys.numpy(), kind="stable"), want)
+
+
+def test_order_keys_nan_is_inf_and_zeros_are_equal():
+    d = torch.tensor([np.nan, np.inf, -0.0, 0.0, -np.nan], dtype=torch.float32)
+    k = approx_topk.order_keys(d, torch.full((5,), 17)).tolist()
+    assert k[0] == k[1] == k[4] and k[2] == k[3] == 17
+    # below +inf at any position, above every finite distance
+    assert approx_topk.order_keys(torch.tensor([3e38]), torch.tensor([2**31 - 1])) < k[1]
+
+
+def test_seeding_product_on_the_cpu_is_the_plain_product():
+    """On the CPU the seeding's product is ``q @ c.T`` in f32, contiguous
+    (the padded row stride is for the card's bulk copies)."""
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(rng.normal(size=(7, 5)).astype(np.float32))
+    c = torch.from_numpy(rng.integers(0, 255, size=(31, 5)).astype(np.uint8))
+    dot = approx_topk.seeding_product(q, c)
+    assert dot.is_contiguous() and dot.dtype == torch.float32
+    assert torch.equal(dot, q @ c.float().T)
 
 
 def test_smoke_bound_counts_each_byte_once():
@@ -331,6 +409,102 @@ def test_cuda_kernel_counts_nan_as_inf(cuda_device, measure):
     nan_row = float("inf") if measure == DistanceMeasure.Euclidean else 1.0
     assert (d[1] == nan_row).all()
     assert not (torch.cat([p[:1], p[2:]]) == 5).any()
+
+
+# (B, n, k, rows): B not a multiple of the 4 rows a block (the build's
+# ragged last chunk, a tile of 1,000), n whose last tile is short (30,752
+# at 1,024 bins ends in 32 columns; 1,000 at k = 32 is exact), 5 sub-tiles
+# (640 bins), two passes (1,280 bins), k = 1
+EDGE_SHAPES = [(8191, 30752, 32, 8191), (1000, 30752, 8, 1000),
+               (1000, 30752, 16, 1000), (512, 1000, 32, 512),
+               (300, 1208, 32, 300), (300, 2400, 32, 300), (300, 30752, 1, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, n, k, rows", EDGE_SHAPES)
+def test_cuda_kernel_edges(cuda_device, B, n, k, rows):
+    dot, q_sq, c_sq = card_inputs(cuda_device, B, n, rows, seed=B + n + k)
+    d, p = approx_smallest_k(dot, q_sq, c_sq, k)
+    torch.cuda.synchronize()
+    want_d, want_p = approx_smallest_k_plain(
+        finish(dot, q_sq[:, None], c_sq[None, :], DistanceMeasure.Euclidean), k)
+    assert torch.equal(p, want_p)
+    assert torch.equal(d.view(torch.int32), want_d.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [30751, 30752])
+def test_cuda_kernel_unaligned_rows(cuda_device, n):
+    """Rows at a stride that is not a multiple of 4 elements, and norms at
+    an odd offset: the block kernel and the warp kernel (the norms copied
+    to an aligned buffer) give the plain version's result."""
+    B, k = 777, 32
+    dot, q_sq, c_sq = card_inputs(cuda_device, B, n, B, seed=n)
+    want_d, want_p = approx_smallest_k_plain(
+        finish(dot, q_sq[:, None], c_sq[None, :], DistanceMeasure.Euclidean), k)
+    strided = torch.empty((B, n + 1), device=cuda_device)[:, :n]
+    strided.copy_(dot)
+    odd = torch.empty(n + 1, device=cuda_device)[1:]
+    odd.copy_(c_sq)
+    for a, b in ((strided, c_sq), (dot, odd)):
+        d, p = approx_smallest_k(a, q_sq, b, k)
+        assert torch.equal(p, want_p)
+        assert torch.equal(d.view(torch.int32), want_d.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [30749, 30750, 30751])
+def test_cuda_seeding_product_aligns_rows(cuda_device, n):
+    """``n % 4 != 0``: the product's rows sit at a stride rounded up to 4
+    (the warp kernel's bulk copies), its values are the plain product's,
+    and the seeding through it equals the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    q = torch.rand((300, 128), generator=gen, device=cuda_device) * 255.0
+    c = torch.rand((n, 128), generator=gen, device=cuda_device) * 255.0
+    dot = approx_topk.seeding_product(q, c)
+    assert dot.shape == (300, n) and dot.stride() == (-(-n // 4) * 4, 1)
+    # cuBLAS may sum in another order at another row stride
+    assert torch.allclose(dot, q @ c.T, rtol=1e-5, atol=0.0)
+    q_sq, c_sq = squared_norms(q), squared_norms(c)
+    d, p = dist_approx_smallest_k(q, c, 8, q_sq=q_sq, c_sq=c_sq)
+    want_d, want_p = approx_smallest_k_plain(
+        finish(dot, q_sq[:, None], c_sq[None, :], DistanceMeasure.Euclidean), 8)
+    assert torch.equal(p, want_p)
+    assert torch.equal(d.view(torch.int32), want_d.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 32])
+def test_cuda_kernel_equal_distances_across_bins(cuda_device, k):
+    """Few distinct distances: ties inside bins and across bins, every one
+    broken by position, as in the plain version."""
+    B, n = 1024, 30752
+    gen = torch.Generator(device=cuda_device).manual_seed(k)
+    dot = -torch.randint(0, 6, (B, n), generator=gen, device=cuda_device).float()
+    q_sq = torch.zeros(B, device=cuda_device)
+    c_sq = torch.zeros(n, device=cuda_device)
+    d, p = approx_smallest_k(dot, q_sq, c_sq, k)
+    want_d, want_p = approx_smallest_k_plain(
+        finish(dot, q_sq[:, None], c_sq[None, :], DistanceMeasure.Euclidean), k)
+    assert torch.equal(p, want_p)
+    assert torch.equal(d.view(torch.int32), want_d.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 32])
+def test_cuda_kernel_nan_rows(cuda_device, k):
+    """Rows of NaN products (every bin at +inf, its first position) and
+    rows with NaN stripes, at the seeding's widths."""
+    B, n = 64, 30752
+    dot, q_sq, c_sq = card_inputs(cuda_device, B, n, B, seed=k)
+    dot[3] = float("nan")
+    dot[5, ::7] = float("nan")
+    d, p = approx_smallest_k(dot, q_sq, c_sq, k)
+    want_d, want_p = approx_smallest_k_plain(
+        finish(dot, q_sq[:, None], c_sq[None, :], DistanceMeasure.Euclidean), k)
+    assert torch.equal(p, want_p)
+    assert torch.equal(d.view(torch.int32), want_d.view(torch.int32))
+    assert d[3].isinf().all() and p[3].tolist() == list(range(k))
 
 
 @pytest.mark.cuda
