@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ggnn_torch import GGNN, Evaluator, set_log_level
-from ggnn_torch.ops import adjacency, approx_topk, beam
+from ggnn_torch.ops import adjacency, approx_topk, beam, gather_dist
 
 BASELINE_QPS = 500_000.0
 
@@ -190,8 +190,9 @@ def run(n, nq, k_build, group, device, cache, warm_build, curve, sweep=SWEEP,
     ``stats``: a dict that receives what the run saw beside its result --
     whether the graph came from the cache, the build's phase seconds, the
     index, brute-force and sweep seconds, the index's device bytes per
-    point, every sweep point, the adjacency, the dedup and the seeding's
-    approximate top-k kernels' launches in the build and in the queries,
+    point, every sweep point, the adjacency, the dedup, the seeding's
+    approximate top-k and the walks' gather + distance kernels' launches in
+    the build and in the queries,
     the data with the ground truth, on CUDA the peak device memory of each
     stage, and the ``GGNN`` itself under ``"ggnn"``, left open for the
     caller to query further and close (without ``stats`` the run closes
@@ -202,7 +203,7 @@ def run(n, nq, k_build, group, device, cache, warm_build, curve, sweep=SWEEP,
     if stats is not None and device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     launches0, dedup0 = adjacency.launches, beam.launches
-    approx0 = approx_topk.launches
+    approx0, gather0 = approx_topk.launches, gather_dist.launches
     base, query = make_dataset(n, nq, seed=DATASET_SEED)
 
     meta_path = os.path.join(cache, "bench_meta.json") if cache else None
@@ -237,6 +238,7 @@ def run(n, nq, k_build, group, device, cache, warm_build, curve, sweep=SWEEP,
     launches_build = adjacency.launches - launches0
     dedup_build = beam.launches - dedup0
     approx_build = approx_topk.launches - approx0
+    gather_build = gather_dist.launches - gather0
     load_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -271,7 +273,7 @@ def run(n, nq, k_build, group, device, cache, warm_build, curve, sweep=SWEEP,
     # the queries go to the device once, outside the timed region
     query_dev = torch.from_numpy(query).to(device)
     launches_swept, dedup_swept = adjacency.launches, beam.launches
-    approx_swept = approx_topk.launches
+    approx_swept, gather_swept = approx_topk.launches, gather_dist.launches
     points = []
     best = None
     t0 = time.perf_counter()
@@ -327,6 +329,8 @@ def run(n, nq, k_build, group, device, cache, warm_build, curve, sweep=SWEEP,
             "dedup_launches_queries": beam.launches - dedup_swept,
             "approx_launches_build": approx_build,
             "approx_launches_queries": approx_topk.launches - approx_swept,
+            "gather_launches_build": gather_build,
+            "gather_launches_queries": gather_dist.launches - gather_swept,
             "base": base, "query": query, "gt_ids": gt_ids, "gt_dists": gt_dists,
             "ggnn": g,
         })

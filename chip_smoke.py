@@ -8,8 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Device: print the ``nvidia-smi`` name and power-limit line; a CUDA device
    is required (there is no CPU fallback).
 2. Kernel build: compile ``ggnn_torch/csrc/adjacency_dot.cu``,
-   ``ggnn_torch/csrc/beam_dedup.cu`` and ``ggnn_torch/csrc/approx_topk.cu``
-   from this checkout, one ``nvcc`` each, all at once, and print the
+   ``ggnn_torch/csrc/beam_dedup.cu``, ``ggnn_torch/csrc/approx_topk.cu``
+   and ``ggnn_torch/csrc/gather_dist.cu`` from this checkout, one ``nvcc``
+   each, all at once, and print the
    seconds each took and the libraries' paths
    (named by the hash of the source and the nvcc flags), then each kernel's
    registers, shared and local (spill) bytes (``cuobjdump -res-usage``) and
@@ -54,6 +55,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    and 13): each dense-seeded merge's first chunk against its layer's
    representatives at k=32, each query tile against the fused index's
    representatives at the benchmark's num_seeds.
+3d. The walks' fused gather + distance against plain: ``gather_dist``
+   (``csrc/gather_dist.cu``) against ``gather_dist_plain`` (the gather,
+   cuBLAS's einsum and ``finish``) on the same inputs at
+   ``GATHER_SHAPES``: each walk's step (the row query's 10,000 x 288, the
+   f32 merge's 8,192 x 192 on layer 0 and through a translation, the
+   merges' own distances 8,192 x 1 -- the most launched shape -- on layer
+   0 and through a translation, the descent's ``seed_beam`` 8,192 x S =
+   32, the sym walk's 32,768 x 192 with Q = 2, the re-rank's 8,192 x 16
+   also in cosine, the uint8 base's row step) and the CPU tests' edge
+   cases (D = 20, K = 1, uint8 cosine, translation). The kernel's base ids
+   (asked for once) must equal the plain version's, every distance must
+   lie within ``gather_dist.error_bound`` (D * 2^-23 * (q_sq + c_sq),
+   cosine D * 2^-22: two summation orders), and the distances without base
+   ids -- the form every walk calls -- must equal those with them bit for
+   bit; the largest ratio of error to bound and the entries over it (0)
+   are printed, with the kernel's device ms in the walks' form (a CUDA
+   graph of launches, as in phase 3b), its host path's, the plain
+   version's, ``torch.bmm`` alone on rows gathered beforehand, the bound
+   by distinct rows and by gathered rows and the shares of both.
 4. Main path: ``GGNN(device="cuda")`` builds a 262,144-point graph
    (k_build=48, tau_build=0.5, 2 refinements) over the benchmark's
    synthetic SIFT-like data, derives the fused index, computes brute-force
@@ -62,7 +82,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    the queries alone, queries already on the card and results left there.
    The kernel's launch counter must rise during the build and again during
    the queries, and so must the approximate top-k's (the build's merges
-   and the queries' seeding); every count includes the launches replayed
+   and the queries' seeding) and the gather + distance's (the merges' own
+   distances, the queries' re-rank); every count includes the launches replayed
    from CUDA graphs (one per captured launch per replay). At the operating point the
    graph route (the walks' steps replayed as CUDA graphs, the live count read
    once per replay) must return the eager route's ids and dists bit for
@@ -84,9 +105,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    layout (graph + f32 base) beside the fused index's. The kernel must not
    launch: the row walk gathers f32 rows. The graph route must equal the
    eager route at the operating point. The dedup kernel (fused with the
-   compaction) must launch. Then the row call at the operating point with
-   the dedup kernel and with the plain dedup (``plain_dedup``): ms per
-   call and one profile each, the dedup's share before and after. Then
+   compaction) must launch, and so must the gather + distance. Then the
+   row call at the operating point with the dedup kernel and with the
+   plain dedup (``plain_dedup``): ms per call and one profile each, the
+   dedup's share before and after; the same with the gather kernel and
+   the plain gather (``plain_gather``), with the c@1 of each; and every
+   swept point on both gather routes, whose c@1 must lie within 0.003
+   (``gather_sweep``). Then
    k_query=6000 (the reference's
    bound) on the same graph: one fused and one row call for 1,000 queries
    through graphs (pop budget 2,000; the first call captures, the second is
@@ -104,8 +129,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    before phase 4.
 7. The exact f32-fetch build (``quantized_fetch=False``, the schedule every
    base above 1,048,576 points takes at k=48, D=128) of the same 262,144
-   points, then the row sweep on it until c@1 >= 0.90. The kernel must not
-   launch during the build.
+   points, then the row sweep on it until c@1 >= 0.90, every swept point
+   also on the plain gather (c@1 within 0.003). The kernel must not
+   launch during the build; the gather + distance must.
 8. The reference's own build shape (``dense_seed_merge=False``,
    ``sym_mode="walk"``: segment-seeded hierarchic descent, every unconnected
    pair walked) at 262,144 points and 10,000 queries, then the row sweep
@@ -123,10 +149,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    own chunk size and pops per step, its request buffer as it starts) runs
    under ``torch.profiler`` on the default route: its device busy ms and
    share, its top 5 kernels by device time and its host syncs, with the
-   dedup kernel and again with the plain dedup; and once through graphs,
-   for the bytes of its program's pool. The dedup kernel must launch in the
-   build (alone in the merges, fused with the compaction in the sym walks)
-   and in the layer-0 pass's two runs.
+   dedup kernel and again with the plain dedup; on each gather route
+   (ms, a profile each, the request rows that differ); and once through
+   graphs, for the bytes of its program's pool. The dedup kernel must
+   launch in the build (alone in the merges, fused with the compaction in
+   the sym walks) and in the layer-0 pass's two runs, and so must the
+   gather + distance. Every swept row point also runs on the plain gather
+   (c@1 within 0.003).
 9. Shards out of core: 1,048,576 points (the JAX benchmark's 1M headline
    scale) as 4 shards of 262,144 on the one card, with at most 2 shards on
    the device (``set_max_device_shards(2)``) and a ``set_cpu_memory_limit``
@@ -200,7 +229,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    The approximate top-k must launch in the build and in the queries. It
    prints the graph's digest (``sym_bench.graph_digest``) and sweeps
    every point again with exact then approximate seeds (``seed_approx``;
-   c@1 within 0.003 printed, not enforced), and profiles the operating
+   c@1 within 0.003 printed, not enforced), then approximate seeds with
+   the re-rank on the plain gather (c@1 within 0.003 of the kernel's,
+   enforced); the gather + distance must launch in the build and in the
+   queries; and profiles the operating
    point with each, the device ms of the ``seed``, ``walk`` and ``rerank``
    ranges per tile beside the kernels, and the approximate top-k's
    launches in the trace beside those its wrapper counted.
@@ -215,14 +247,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    bound -- each input read once, each output written once; launches per
    path), ``approx_topk`` (phase 3c's numbers at every shape, the bytes
    bound, ``library_ms`` the exact route's; the checks on each path's own
-   inputs; launches per path),
-   then the last line ``{"ok": true, "device": {...}}``.
+   inputs; launches per path), ``gather_dist`` (phase 3d's numbers at
+   every shape, the bytes bound, ``library_ms`` ``torch.bmm`` on
+   pre-gathered rows; the row call and the sym walk chunk on both gather
+   routes; launches per path), then the last line ``{"ok": true,
+   "device": {...}}``.
 
 Every phase prints its seconds. Every kernel's launch counts are set to 0
 just before each path runs and read just after it (launches inside CUDA
 graphs count once per replay); the dedup kernel must launch on every path
 that walks (phases 4-10, 12, 12b, 13), the approximate top-k in phases 4
-and 13. A failure prints its traceback to stdout
+and 13, the gather + distance in phases 4, 5, 7, 8 and 13. A failure prints its traceback to stdout
 and the script exits 1 without a result line.
 """
 
@@ -255,7 +290,7 @@ from ggnn_torch.build import construction
 from ggnn_torch.build import sym as sym_mod
 from ggnn_torch.entry import dryrun_multichip, entry
 from ggnn_torch.native import merge as native_merge
-from ggnn_torch.ops import adjacency, approx_topk, beam
+from ggnn_torch.ops import adjacency, approx_topk, beam, gather_dist
 from ggnn_torch.ops.distance import finish, squared_norms
 from ggnn_torch.ops.topk import smallest_k_positions
 from ggnn_torch.ops import traverse as traverse_mod
@@ -327,6 +362,37 @@ APPROX_SHAPES = [
     ("exact, passes", 1024, 3000, 100, 1024),
 ]
 APPROX_COSINE = ("merge seeding", "padded tail tile", "n below 128")
+
+# the fused gather + distance's check shapes: (label, rows B, candidates K,
+# query vectors Q, base dtype, D, measure, base rows, translated): each
+# walk's step at k_build=48, P=8 (the compaction caps of ``DEDUP_SHAPES``)
+# over the smoke's 262,144-point base -- the row query's step, the f32
+# merge's (on layer 0 and, translated, on an upper layer), the merges' own
+# distances (``build/merge.py``: one candidate a row, the shape launched
+# most in the builds, on layer 0 and translated), the descent's
+# ``seed_beam`` (S = 32 segment ids a row, through the top layer's
+# translation), the sym walk's (Q = 2, ``build/sym.py:_WALK_BATCH`` rows),
+# the fused query's re-rank --, the uint8 base's row step (phase 12's
+# 65,536 points), and the CPU tests' edge cases: D = 20 (the scalar path),
+# K = 1, cosine, u8 with translation
+GATHER_SHAPES = [
+    ("row query step", 10000, 288, 1, "f32", D, "euclidean", N, False),
+    ("f32 merge step", 8192, 192, 1, "f32", D, "euclidean", N, False),
+    ("f32 merge step, translated", 8192, 192, 1, "f32", D, "euclidean", N, True),
+    ("merge own distance", 8192, 1, 1, "f32", D, "euclidean", N, False),
+    ("merge own distance, translated", 8192, 1, 1, "f32", D, "euclidean", N,
+     True),
+    # S = 32: the segment size at k_build=48 (``GraphConfig``)
+    ("descent seed_beam", 8192, 32, 1, "f32", D, "euclidean", N, True),
+    ("sym walk step", sym_mod._WALK_BATCH, 192, 2, "f32", D, "euclidean", N,
+     False),
+    ("re-rank", 8192, 16, 1, "f32", D, "euclidean", N, False),
+    ("re-rank, cosine", 8192, 16, 1, "f32", D, "cosine", N, False),
+    ("uint8 row step", 10000, 288, 1, "u8", D, "euclidean", N_MEASURES, False),
+    ("D 20, K 1", 256, 1, 1, "f32", 20, "euclidean", 4096, True),
+    ("D 20, u8, cosine", 256, 40, 2, "u8", 20, "cosine", 4096, False),
+    ("u8, cosine, translated", 256, 40, 1, "u8", D, "cosine", 4096, True),
+]
 
 
 def time_ms(fn, device, reps=10, warmup=2):
@@ -752,6 +818,217 @@ def approx_on_real_inputs(device, g, query_dev, label,
     return out
 
 
+def gather_inputs(device, B, K, Q, dtype, dim, n_base, translated, seed=0):
+    """The fused gather + distance's inputs at one shape: a base of
+    ``n_base`` rows (uniform in the uint8 range, f32 or uint8), ``Q``
+    query vectors a row at the same magnitudes, ``K`` ids a row over a
+    layer of the base's rows (half of them through a translation when
+    ``translated``), ~10% of them -1. Returns (qs, q_sq, ids, base,
+    base_sq, translation or None)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    base = torch.rand((n_base, dim), generator=gen, device=device) * 255.0
+    if dtype == "u8":
+        base = base.to(torch.uint8)
+    base_sq = squared_norms(base)
+    qs = torch.rand((B, Q, dim), generator=gen, device=device) * 255.0
+    q_sq = torch.sum(qs * qs, dim=-1)
+    n_layer = n_base // 2 if translated else n_base
+    ids = torch.randint(0, n_layer, (B, K), generator=gen, device=device,
+                        dtype=torch.int32)
+    ids[torch.rand((B, K), generator=gen, device=device) < 0.1] = -1
+    tr = (torch.randperm(n_base, generator=gen, device=device)[:n_layer]
+          .to(torch.int32) if translated else None)
+    return qs, q_sq, ids, base, base_sq, tr
+
+
+def gather_bound(ids, translation, dim, elem, Q, with_ids=False):
+    """The least time the card could take for one gather + distance: the ids
+    read once, each distinct translation entry, base row (``dim`` elements
+    of ``elem`` bytes) and norm the ids name read once, the ``Q`` query
+    vectors and norms of each row read once, the distances written once
+    (and the base ids, ``with_ids``: no walk asks for them), at 3.35 TB/s;
+    against 2 flops a product at 67 TFLOP/s. Returns (bytes, flops, bound
+    ms, "bytes" or "operations")."""
+    B, K = ids.shape
+    layer = torch.unique(ids.clamp_min(0).long())
+    if translation is not None:
+        n_rows = int(torch.unique(translation[layer]).numel())
+        n_tr = int(layer.numel())
+    else:
+        n_rows, n_tr = int(layer.numel()), 0
+    nbytes = (B * K * 4 + n_tr * 4 + n_rows * (dim * elem + 4)
+              + B * Q * (dim * 4 + 4) + B * Q * K * 4
+              + (B * K * 8 if with_ids else 0))
+    flops = 2 * B * Q * K * dim
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOP_S * 1e3
+    return nbytes, flops, max(bytes_ms, ops_ms), (
+        "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def measure_gather(device, label, B, K, Q, dtype, dim, measure, n_base,
+                   translated):
+    """The fused gather + distance kernel against its plain version at one
+    shape: base ids equal, every distance within ``gather_dist.error_bound``
+    (the largest ratio of error to bound and the entries over it, 0, are
+    printed), and the distances without base ids (the walks' form) equal
+    to those with them bit for bit; the kernel's device ms in the walks'
+    form (:func:`replay_ms`) and its host path's, the plain version's ms,
+    ``torch.bmm`` alone on rows gathered beforehand (the library yardstick,
+    the gather excluded), the bound by distinct rows (each input byte once)
+    and by gathered rows (each candidate's row once), and the shares of
+    both."""
+    measure = DistanceMeasure[measure.capitalize()]
+    qs, q_sq, ids, base, base_sq, tr = gather_inputs(
+        device, B, K, Q, dtype, dim, n_base, translated)
+
+    def run():  # the walks' form: no base ids
+        return gather_dist.gather_dist(qs, q_sq, ids, base, base_sq, tr,
+                                       measure, with_ids=False)
+
+    def plain():
+        return gather_dist.gather_dist_plain(qs, q_sq, ids, base, base_sq, tr,
+                                             measure, with_ids=False)
+
+    d, base_ids = gather_dist.gather_dist(qs, q_sq, ids, base, base_sq, tr,
+                                          measure)
+    d_walk, _ = run()
+    _sync(device)
+    want_d, want_ids = gather_dist.gather_dist_plain(qs, q_sq, ids, base,
+                                                     base_sq, tr, measure)
+    ids_differ = int((base_ids != want_ids).sum())
+    walk_form_equal = torch.equal(d_walk, d)
+    bound = gather_dist.error_bound(q_sq, base_sq[want_ids], dim, measure)
+    err = (d - want_d).abs()
+    ratio = float((err / bound).max())
+    over = int((err > bound).sum())
+    max_err = float(err.max())
+    if ids_differ or over or not walk_form_equal:
+        raise AssertionError(f"gather_dist ({label}) differs from its plain "
+                             f"version: {ids_differ} base ids, {over} distances "
+                             f"over the bound (largest ratio {ratio:.3f}); "
+                             f"without base ids equal to with them: "
+                             f"{walk_form_equal}")
+    del d, d_walk, base_ids, want_d, err, bound
+    vecs = base[want_ids].to(torch.float32)  # gathered beforehand
+    q_t = qs.transpose(1, 2)
+
+    def library():
+        return torch.bmm(vecs, q_t)
+
+    ms = replay_ms(run, device)
+    host_ms, _ = time_ms(run, device)
+    plain_ms, _ = time_ms(plain, device)
+    library_ms, _ = time_ms(library, device)
+    del vecs
+    elem = 1 if dtype == "u8" else 4
+    nbytes, flops, bound_ms, bound_by = gather_bound(ids, tr, dim, elem, Q)
+    gathered = (B * K * (dim * elem + 4 + 4) + B * Q * (dim * 4 + 4)
+                + B * Q * K * 4)
+    gathered_ms = gathered / HBM_BYTES_S * 1e3
+    timing = (f"device: a CUDA graph of {DEDUP_LAUNCHES} launches"
+              if device.type == "cuda" else "host clock, CPU")
+    print(f"gather_dist {label} B={B} K={K} Q={Q} {dtype} D={dim} "
+          f"{measure.name} base {n_base}{' translated' if translated else ''}: "
+          f"base ids differing {ids_differ} | largest error / bound {ratio:.4f},"
+          f" entries over the bound {over} (max abs err {max_err:.4g}) | kernel "
+          f"{ms:.4f} ms ({timing}) | host path {host_ms:.4f} ms | plain "
+          f"{plain_ms:.4f} ms | torch.bmm on pre-gathered rows {library_ms:.4f}"
+          f" ms | bound {bound_ms:.4f} ms ({nbytes} B, distinct rows, at 3.35 "
+          f"TB/s; {flops} flop) share {bound_ms / ms:.3f} | each gathered row "
+          f"once {gathered_ms:.4f} ms ({gathered} B) share "
+          f"{gathered_ms / ms:.3f}", flush=True)
+    return {"max_abs_err": max_err, "max_err_ratio": ratio,
+            "over_bound": over, "differing": ids_differ, "ms": ms,
+            "host_ms": host_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "bytes": nbytes,
+            "gathered_bound_ms": gathered_ms,
+            "gathered_bound_share": gathered_ms / ms}
+
+
+def check_gather(device, shapes=GATHER_SHAPES):
+    """Phase 3d: the fused gather + distance kernel against its plain
+    version at every walk's step shape and the CPU tests' edge cases.
+    Returns {label: numbers}."""
+    out = {}
+    for label, *shape in shapes:
+        out[label] = measure_gather(device, label, *shape)
+        torch.cuda.empty_cache()
+    print(f"gather_dist vs plain: largest error / bound "
+          f"{max(r['max_err_ratio'] for r in out.values()):.4f}, entries over "
+          f"the bound {sum(r['over_bound'] for r in out.values())}, base ids "
+          f"differing {sum(r['differing'] for r in out.values())}", flush=True)
+    return out
+
+
+@contextmanager
+def plain_gather():
+    """While inside, the walks' distance steps and the re-rank take the
+    plain gather + einsum (``gather_dist_plain``) in place of the kernel:
+    both routes on one card in one run. Every walk program is released on
+    entry and on exit, so that no graph captured on one side replays on the
+    other."""
+    mods = (traverse_mod, sym_mod, fused_mod)
+    graphs.clear()
+    for m in mods:
+        m.gather_dist = gather_dist.gather_dist_plain
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.gather_dist = gather_dist.gather_dist
+        graphs.clear()
+
+
+def gather_before_after(device, label, call, evaluate=None, reps=3):
+    """``call()`` with the gather kernel and with the plain gather
+    (:func:`plain_gather`): the ms per call of each (CUDA events, after two
+    warm-ups: each side starts with no walk program, so its first call
+    captures the walk's graphs, and the call after it still runs slower
+    than the later ones), one profile of each, and ``evaluate`` of each
+    call's result (c@1, or the requests a sym chunk made). Returns both."""
+    out = {}
+    for side in ("kernel", "plain"):
+        with plain_gather() if side == "plain" else nullcontext():
+            ms, res = time_ms(call, device, reps=reps, warmup=2)
+            out[side] = {"ms": ms, "profile": profile_call(
+                device, call, f"{label} ({side} gather)")}
+            if evaluate is not None:
+                out[side]["result"] = evaluate(res)
+    print(f"{label}: ms per call with the gather kernel {out['kernel']['ms']:.3f}"
+          f", with the plain gather {out['plain']['ms']:.3f} | results "
+          f"{json.dumps({k: v.get('result') for k, v in out.items()})}",
+          flush=True)
+    return out
+
+
+def gather_sweep(g, query_dev, evaluator, points, kw, label):
+    """Each of the (tau, pop budget) ``points`` with the gather kernel and
+    with the plain gather (one call each, 10,000 queries): c@1 of the two
+    must lie within 0.003 -- the kernel sums in another order than cuBLAS,
+    which may swap near ties, nothing more. Returns [{point, kernel c@1,
+    plain c@1}]."""
+    out = []
+    for side in ("kernel", "plain"):
+        with plain_gather() if side == "plain" else nullcontext():
+            for i, (tau, iters) in enumerate(points):
+                res = g.query(query_dev, K_QUERY, tau, iters, **kw)
+                c1 = evaluator.evaluate_results(np.asarray(res.ids)).c1
+                if side == "kernel":
+                    out.append({"tau": tau, "iters": iters, "kernel_c1": c1})
+                else:
+                    out[i]["plain_c1"] = c1
+    for p in out:
+        print(f"{label} tau={p['tau']} iters={p['iters']}: c@1 gather kernel "
+              f"{p['kernel_c1']:.4f}, plain gather {p['plain_c1']:.4f}",
+              flush=True)
+        if abs(p["kernel_c1"] - p["plain_c1"]) > 0.003:
+            raise AssertionError(f"{label}: c@1 with the gather kernel "
+                                 f"{p['kernel_c1']} is not within 0.003 of the "
+                                 f"plain route's {p['plain_c1']}")
+    return out
+
+
 def fused_call(g, query_dev, point, route=None, k=K_QUERY):
     """One fused query of shard 0 at ``point`` with the smoke's knobs, as
     ``GGNN.query`` makes it, through ``route`` (None: CUDA graphs on the
@@ -1061,17 +1338,20 @@ def zero_launches():
     adjacency.launches = adjacency.launches_nibbles = 0
     beam.launches = beam.launches_compact = 0
     approx_topk.launches = 0
+    gather_dist.launches = 0
 
 
 def launches_now():
     """Every kernel's launches since :func:`zero_launches`: the adjacency
     kernel's (and those in int4 mode), the dedup kernel's alone and fused
-    with the compaction, the seeding's approximate top-k's."""
+    with the compaction, the seeding's approximate top-k's, the walks'
+    fused gather + distance's."""
     return {"adjacency_dot": adjacency.launches,
             "adjacency_dot_nibbles": adjacency.launches_nibbles,
             "beam_dedup": beam.launches - beam.launches_compact,
             "beam_dedup_compact": beam.launches_compact,
-            "approx_topk": approx_topk.launches}
+            "approx_topk": approx_topk.launches,
+            "gather_dist": gather_dist.launches}
 
 
 def _minus(a, b):
@@ -1089,6 +1369,12 @@ def _not_launched(count, what):
     if count != 0:
         raise AssertionError(f"{what} launched the adjacency kernel {count} "
                              "times; its path runs no such kernel")
+
+
+def _gather_launched(counts, what, device):
+    """The fused gather + distance kernel must have launched in ``counts``."""
+    _launched(counts["gather_dist"], what, device,
+              "the gather + distance kernel")
 
 
 def _dedup_launched(counts, what, device, compact=False):
@@ -1217,6 +1503,8 @@ def main_path(device, n=N, nq=NQ):
               "the approximate top-k kernel")
     _launched(counts_queries["approx_topk"], "the fused queries' seeding",
               device, "the approximate top-k kernel")
+    _gather_launched(counts_build, "the build's merges", device)
+    _gather_launched(counts_queries, "the fused queries' re-rank", device)
     print(f"operating point: {json.dumps(best)} | kernel launches: build "
           f"{json.dumps(counts_build)}, queries {json.dumps(counts_queries)}",
           flush=True)
@@ -1262,14 +1550,26 @@ def row_path(device, ctx):
     counts = launches_now()
     _not_launched(counts["adjacency_dot"], "the row queries")
     _dedup_launched(counts, "the row queries", device, compact=True)
+    _gather_launched(counts, "the row queries", device)
     print(f"row operating point: {json.dumps(best)} | kernel launches "
           f"{json.dumps(counts)}", flush=True)
     identity = graph_vs_eager(device, "row", lambda r: row_call(
         g, ctx["query_dev"], best, r))
     dedup = dedup_before_after(device, "row query call",
                                lambda: row_call(g, ctx["query_dev"], best))
+    gather = gather_before_after(
+        device, "row query call", lambda: row_call(g, ctx["query_dev"], best),
+        lambda res: ctx["evaluator"].evaluate_results(res[0].cpu().numpy()).c1)
+    gather["sweep"] = gather_sweep(g, ctx["query_dev"], ctx["evaluator"],
+                                   _swept(ROW_SWEEP, best), ROW_KW, "row")
     return {**best, "row_bytes": row_bytes, "fused_bytes": fused_bytes,
-            "graph_vs_eager": identity, "counts": counts, "dedup": dedup}
+            "graph_vs_eager": identity, "counts": counts, "dedup": dedup,
+            "gather": gather}
+
+
+def _swept(points, best):
+    """The (tau, pop budget) points a sweep ran: up to ``best``."""
+    return points[:points.index((best["tau"], best["iters"])) + 1]
 
 
 def _check_rows(ids, dists, label):
@@ -1354,6 +1654,9 @@ def other_build(device, label, n, nq, start, **build_kw):
     print(f"{label}: {json.dumps(best)} | kernel launches in the build "
           f"{json.dumps(counts)} | build peak device memory "
           f"{json.dumps(build_peak)}", flush=True)
+    best["gather_sweep"] = gather_sweep(
+        g, query_dev, evaluator, _swept(ROW_SWEEP[start:], best), ROW_KW,
+        f"{label} row")
     approx_real = (approx_on_real_inputs(device, g, query_dev, f"the {label} build")
                    if build_kw.get("dense_seed_merge", True) else None)
     return (counts, {"build_s": build_s, "build_peak": build_peak,
@@ -1492,6 +1795,7 @@ def descent_path(device, n=N_DESCENT, nq=NQ):
     sym_counts = launches_now()
     _dedup_launched(sym_counts, "the layer-0 sym pass (walk)", device,
                     compact=True)
+    _gather_launched(sym_counts, "the layer-0 sym pass (walk)", device)
     rows = int(torch.any(got != want, dim=1).sum())
     keys = [k for k in want_st if not k.startswith("walk_")] + ["walk_rows"]
     same = all(got_st[k] == want_st[k] for k in keys)
@@ -1516,13 +1820,30 @@ def descent_path(device, n=N_DESCENT, nq=NQ):
         "launches": sym_counts}
     del want, got
 
-    chunk, pairs, _ = walk_chunk(device, args, kw)
+    chunk, pairs, (_, requests) = walk_chunk(device, args, kw)
     out["sym"]["chunk_profile"] = profile_call(
         device, chunk, f"sym walk chunk ({pairs} pairs, per-step loop)")
     with plain_dedup():
         out["sym"]["chunk_profile_plain_dedup"] = profile_call(
             device, chunk, f"sym walk chunk ({pairs} pairs, per-step loop, "
             "plain dedup)")
+    # the chunk on each gather route: ms, and the requests it made
+    made = []
+
+    def made_requests(_):
+        made.append(requests.clone())
+        return int((requests >= 0).sum())
+
+    gather = gather_before_after(
+        device, f"sym walk chunk ({pairs} pairs, per-step loop)", chunk,
+        made_requests)
+    gather["request_rows_differing"] = int(torch.any(made[0] != made[1],
+                                                     dim=1).sum())
+    print(f"sym walk chunk: request rows differing between the gather kernel "
+          f"and the plain gather {gather['request_rows_differing']} of "
+          f"{requests.shape[0]}", flush=True)
+    out["sym"]["chunk_gather"] = gather
+    del made
     chunk, _, reads = walk_chunk(device, args, kw, graphs.GRAPHS)
     chunk()
     out["sym"]["chunk_pool_bytes"] = graphs.pool_bytes()
@@ -2025,12 +2346,18 @@ def headline_path(device, n=N_HEADLINE, nq=NQ_HEADLINE):
                   "the approximate top-k kernel")
         _launched(stats["approx_launches_queries"], "the headline queries",
                   device, "the approximate top-k kernel")
+        _launched(stats["gather_launches_build"], "the headline build",
+                  device, "the gather + distance kernel")
+        _launched(stats["gather_launches_queries"], "the headline queries' "
+                  "re-rank", device, "the gather + distance kernel")
         dedup = counts["beam_dedup"] + counts["beam_dedup_compact"]
         if (stats["launches_build"] + stats["launches_queries"] != launches
                 or stats["dedup_launches_build"]
                 + stats["dedup_launches_queries"] != dedup
                 or stats["approx_launches_build"]
-                + stats["approx_launches_queries"] != counts["approx_topk"]):
+                + stats["approx_launches_queries"] != counts["approx_topk"]
+                or stats["gather_launches_build"]
+                + stats["gather_launches_queries"] != counts["gather_dist"]):
             raise AssertionError("headline: kernel launches outside the build and "
                                  "the queries")
         stats["digest"] = graph_digest(g)
@@ -2064,28 +2391,40 @@ def headline_path(device, n=N_HEADLINE, nq=NQ_HEADLINE):
 
 
 def seeds_sweep(g, query_dev, nq, points, evaluator):
-    """Each swept point with ``seed_approx=False`` then ``True``, timed as
-    ``bench_torch`` times a point; whether c@1 with approximate seeds
-    comes within 0.003 of exact seeds' is printed, not enforced (a miss is
-    a finding). Returns [{point, exact: {qps, c1, c10}, approx: {...}}]."""
+    """Each swept point with ``seed_approx=False``, then ``True``, then
+    ``True`` with the re-rank on the plain gather (:func:`plain_gather`),
+    timed as ``bench_torch`` times a point. Whether c@1 with approximate
+    seeds comes within 0.003 of exact seeds' is printed, not enforced (a
+    miss is a finding); the plain gather's c@1 must come within 0.003 of
+    the kernel's (the re-rank's sums in another order may swap near ties,
+    nothing more). Returns [{point, exact: {qps, c1, c10}, approx: {...},
+    approx_plain_gather: {...}}]."""
     out = []
     for p in points:
         row = {"tau": p["tau"], "iters": p["iters"], "P": p["P"]}
-        for approx in (False, True):
+        for key, approx, ctx in (("exact", False, nullcontext),
+                                 ("approx", True, nullcontext),
+                                 ("approx_plain_gather", True, plain_gather)):
             got = []
-            bench_torch._run_config(
-                g, evaluator, query_dev, nq, K_QUERY, p["tau"], p["iters"],
-                dict(QKW, seed_approx=approx), None, pops_per_iter=p["P"],
-                points=got)
-            row["approx" if approx else "exact"] = {
-                k: got[0][k] for k in ("qps", "c1", "c10")}
+            with ctx():
+                bench_torch._run_config(
+                    g, evaluator, query_dev, nq, K_QUERY, p["tau"], p["iters"],
+                    dict(QKW, seed_approx=approx), None, pops_per_iter=p["P"],
+                    points=got)
+            row[key] = {k: got[0][k] for k in ("qps", "c1", "c10")}
         row["c1_within_0.003"] = abs(row["approx"]["c1"]
                                      - row["exact"]["c1"]) <= 0.003
+        gap = abs(row["approx"]["c1"] - row["approx_plain_gather"]["c1"])
         print(f"headline seeds tau={p['tau']} iters={p['iters']} P={p['P']}: "
               f"exact c@1={row['exact']['c1']:.4f} qps={row['exact']['qps']:.1f}"
               f" | approximate c@1={row['approx']['c1']:.4f} qps="
               f"{row['approx']['qps']:.1f} | c@1 within 0.003: "
-              f"{row['c1_within_0.003']}", flush=True)
+              f"{row['c1_within_0.003']} | plain gather re-rank c@1="
+              f"{row['approx_plain_gather']['c1']:.4f} qps="
+              f"{row['approx_plain_gather']['qps']:.1f}", flush=True)
+        if gap > 0.003:
+            raise AssertionError(f"headline at {row}: c@1 with the gather kernel "
+                                 "is not within 0.003 of the plain gather's")
         out.append(row)
     return out
 
@@ -2127,19 +2466,21 @@ def run(device):
     t0 = _phase("device", t0)
 
     # the kernels' sources compile at once, one nvcc each
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = [pool.submit(m.build_kernel)
-                  for m in (adjacency, beam, approx_topk)]
+                  for m in (adjacency, beam, approx_topk, gather_dist)]
         build_s = [f.result() for f in builds]
     print(f"kernel build: {build_s[0]:.2f} s | library {adjacency.library_path()}"
           f" | dedup kernel build {build_s[1]:.2f} s | library "
           f"{beam.library_path()} | approx top-k kernel build {build_s[2]:.2f} s "
-          f"| library {approx_topk.library_path()}", flush=True)
+          f"| library {approx_topk.library_path()} | gather + distance kernel "
+          f"build {build_s[3]:.2f} s | library {gather_dist.library_path()}",
+          flush=True)
     # registers, shared and local (spill) bytes per kernel, and the I2F
     # count of its SASS, from the toolkit's cuobjdump
     resources = {}
     for label, m in (("adjacency_dot", adjacency), ("beam_dedup", beam),
-                     ("approx_topk", approx_topk)):
+                     ("approx_topk", approx_topk), ("gather_dist", gather_dist)):
         res = m.kernel_resources()
         resources[label] = "not available" if res is None else {
             k: {f: r[f] for f in ("REG", "SHARED", "LOCAL", "STACK", "I2F")
@@ -2159,6 +2500,8 @@ def run(device):
     t0 = _phase("dedup kernel vs plain", t0)
     approx = check_approx(device)
     t0 = _phase("approx top-k kernel vs plain", t0)
+    gather = check_gather(device)
+    t0 = _phase("gather + distance kernel vs plain", t0)
 
     allocated = torch.cuda.memory_allocated(device)
     summary, ctx = main_path(device)
@@ -2176,6 +2519,7 @@ def run(device):
                                      quantized_fetch=False)
     _not_launched(f32_counts["adjacency_dot"], "the f32-fetch build")
     _dedup_launched(f32_counts, "the f32-fetch build", device, compact=True)
+    _gather_launched(f32_counts, "the f32-fetch build", device)
     torch.cuda.empty_cache()
     t0 = _phase("f32-fetch build + row sweep", t0)
     descent_counts, descent = descent_path(device)
@@ -2184,6 +2528,7 @@ def run(device):
     _dedup_launched(descent_counts, "the descent build's merges", device)
     _dedup_launched(descent_counts, "the descent build's sym walks", device,
                     compact=True)
+    _gather_launched(descent_counts, "the descent build", device)
     torch.cuda.empty_cache()
     t0 = _phase("descent build + row sweep", t0)
     sharded = shards_path(device)
@@ -2338,6 +2683,40 @@ def run(device):
             headline_build=headline_stats["approx_launches_build"],
             headline_queries=headline_stats["approx_launches_queries"]),
         "resources": resources["approx_topk"],
+    })
+    # the walks' fused gather + distance, at its callers' shapes; the
+    # top-level numbers at the row query's step. ``library_ms``: torch.bmm
+    # alone on rows gathered beforehand (the gather excluded)
+    kernels.append({
+        "name": "gather_dist",
+        "route": "cuda",
+        "source": "ggnn_torch/csrc/gather_dist.cu",
+        # no Pallas kernel: XLA's fusion of a gather into an einsum
+        "replaces": "ggnn_tpu/ops/traverse.py:33, ggnn_tpu/build/sym.py:55, "
+                    "ggnn_tpu/query/fused.py:782",
+        "launches": sum(per_path("gather_dist").values()),
+        **numbers(gather["row query step"], ("host_ms", "library_ms",
+                                             "max_err_ratio", "over_bound",
+                                             "differing", "gathered_bound_ms",
+                                             "gathered_bound_share")),
+        "library": "torch.bmm on rows gathered beforehand",
+        "shapes": {label: numbers(r, ("host_ms", "library_ms", "max_err_ratio",
+                                      "over_bound", "differing",
+                                      "gathered_bound_ms",
+                                      "gathered_bound_share"))
+                   for label, r in gather.items()},
+        "before_after": {
+            "row_call": {k: {"ms": v["ms"], "c1": v["result"]}
+                         for k, v in row["gather"].items() if k != "sweep"},
+            "sym_walk_chunk": {
+                k: {"ms": v["ms"], "requests": v["result"]}
+                for k, v in descent["sym"]["chunk_gather"].items()
+                if k in ("kernel", "plain")}},
+        "launches_per_path": dict(
+            per_path("gather_dist"),
+            headline_build=headline_stats["gather_launches_build"],
+            headline_queries=headline_stats["gather_launches_queries"]),
+        "resources": resources["gather_dist"],
     })
     # the card's line again beside the numbers, should the head of the log
     # be cut

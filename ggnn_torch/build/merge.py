@@ -33,7 +33,7 @@ import torch
 from ggnn_torch.config import MERGE_MAX_ITERATIONS, DistanceMeasure, GraphConfig
 from ggnn_torch.ops.approx_topk import dist_approx_smallest_k
 from ggnn_torch.ops.beam import beam_init, beam_insert, beam_transform
-from ggnn_torch.ops.traverse import best_first_search, gather_dists, seed_beam
+from ggnn_torch.ops.traverse import best_first_search, candidate_dists, seed_beam
 from ggnn_torch.query.fused import fused_best_first, fused_best_first_compacted
 from ggnn_torch.utils import graphs
 
@@ -94,7 +94,7 @@ def _merge_chunk(n, base, base_sq, neighbors, selection, translation,
         seed_ids = torch.where(dup, -1, seed_ids)
         seed_d = torch.where(dup, float("inf"), seed_d)
         state = beam_insert(state, seed_ids, seed_d, criteria=no_crit)
-        d_own, _ = gather_dists(q_vecs, q_sq, n[:, None], base, base_sq,
+        d_own = candidate_dists(q_vecs, q_sq, n[:, None], base, base_sq,
                                 trans_btm, measure)
         state = beam_insert(state, n[:, None], d_own, criteria=no_crit)
         descent_layers = [layer_btm]
@@ -121,7 +121,7 @@ def _merge_chunk(n, base, base_sq, neighbors, selection, translation,
             held = state.i == n[:, None]
             state = state._replace(i=torch.where(held, -1, state.i),
                                    d=torch.where(held, float("inf"), state.d))
-            d_own, _ = gather_dists(q_vecs, q_sq, n[:, None], base, base_sq,
+            d_own = candidate_dists(q_vecs, q_sq, n[:, None], base, base_sq,
                                     trans_l, measure)
             state = beam_insert(state, n[:, None], d_own, criteria=no_crit)
         adj_l = adjs[layer] if adjs is not None else None

@@ -48,6 +48,7 @@ from ggnn_torch.ops.beam import (
     beam_pop,
 )
 from ggnn_torch.ops.distance import finish
+from ggnn_torch.ops.gather_dist import gather_dist
 from ggnn_torch.utils import graphs
 
 __all__ = ["sym_pass"]
@@ -58,15 +59,15 @@ _HALF_EPS = 0.1  # simple_knn_sym_cache.cuh:39
 _WALK_BATCH = 1 << 15
 
 
-def _pair_dists(q, h, q_sq, h_sq, cand_vecs, cand_sq, measure):
-    """Exact f32 distances of gathered candidates to both the query and the
-    half point. q/h: [R, D]; cand_vecs: [R, K, D]; cand_sq: [R, K].
+def _pair_dists(qh, qh_sq, ids, base, base_sq, translation, measure):
+    """Exact f32 distances of candidates to both the query and the half
+    point, in one pass over each candidate row (the fused gather +
+    distance with Q = 2, ``ops/gather_dist.py``). qh: [R, 2, D] (query,
+    half point); qh_sq: [R, 2]; ids: [R, K] layer-local (-1 read as 0).
     Returns (dist_q, dist_h), each [R, K]."""
-    dq = finish(torch.einsum("rd,rkd->rk", q, cand_vecs), q_sq[:, None],
-                cand_sq, measure)
-    dh = finish(torch.einsum("rd,rkd->rk", h, cand_vecs), h_sq[:, None],
-                cand_sq, measure)
-    return dq, dh
+    d, _ = gather_dist(qh, qh_sq, ids, base, base_sq, translation, measure,
+                       with_ids=False)
+    return d[:, 0], d[:, 1]
 
 
 class _WalkCarry(NamedTuple):
@@ -128,19 +129,20 @@ def _sym_walk(n, start, nbrs, sym_buffer, translation_l, base, base_sq, xi,
     s_vec = base[tr(start)].to(torch.float32)
     # half-way point (simple_knn_sym_cache.cuh:159-177)
     h = q + (0.5 - _HALF_EPS) * (s_vec - q)
-    q_sq = torch.sum(q * q, dim=-1)
-    h_sq = torch.sum(h * h, dim=-1)
+    qh = torch.stack([q, h], dim=1)  # [R, 2, D]
+    qh_sq = torch.sum(qh * qh, dim=-1)
+    del q, s_vec, h
 
     # init_start_point: seed with the start neighbour, fix criteria_half
-    dq0, dh0 = _pair_dists(q, h, q_sq, h_sq, s_vec[:, None, :],
-                           base_sq[tr(start)][:, None], measure)
+    dq0, dh0 = _pair_dists(qh, qh_sq, start[:, None], base, base_sq,
+                           translation_l, measure)
     criteria_half = dh0[:, 0] + xi
     state = beam_init(R, width, xi, vis_size, device=dev)
     state = beam_insert(state, start[:, None].to(torch.int32), dq0,
                         criteria=torch.full((R,), float("inf"), device=dev))
 
     def step(c, k, cap_now=cap):
-        q, h, q_sq, h_sq, criteria_half, n = k
+        qh, qh_sq, criteria_half, n = k
         st, connected = c.beam, c.connected
         # criteria_sym = best distance + xi (simple_knn_sym_cache.cuh:285-288)
         crit = st.d[:, 0] + st.xi
@@ -157,9 +159,8 @@ def _sym_walk(n, start, nbrs, sym_buffer, translation_l, base, base_sq, xi,
         live = active & ~found
         # dedup on ids BEFORE the vector gather, pack left
         _, packed = beam_dedup_compact(st, cand, a_ok & live[:, None], cap_now)
-        cb = tr(packed.clamp_min(0))
-        dq, dh = _pair_dists(q, h, q_sq, h_sq, base[cb].to(torch.float32),
-                             base_sq[cb], measure)
+        dq, dh = _pair_dists(qh, qh_sq, packed, base, base_sq, translation_l,
+                             measure)
         # admit only when close to both query and half point
         admitted = torch.where(dh < criteria_half[:, None], packed, -1)
         st = beam_insert(st, admitted, dq, row_mask=live, criteria=crit)
@@ -167,7 +168,7 @@ def _sym_walk(n, start, nbrs, sym_buffer, translation_l, base, base_sq, xi,
 
     # degenerate self-link rows (and padding rows) resolve immediately
     carry = _WalkCarry(*state, start == n)
-    consts = (q, h, q_sq, h_sq, criteria_half, n)
+    consts = (qh, qh_sq, criteria_half, n)
     live = torch.ones((R,), dtype=torch.bool, device=dev)
     name = ("sym", int(measure), P, KL, KF, cap, translation_l is not None)
     reads = (nbrs, sym_buffer, translation_l, base, base_sq)

@@ -4,14 +4,14 @@ Replacement for the reference's per-block traversal loops
 (src/ggnn/query/query_layer.cu:57-79, src/ggnn/construction/merge_layer.cu:
 100-121): a loop over a whole batch of rows, where each step pops P anchors
 per row from the flagged beam, gathers their neighbour rows, dedups candidate
-ids, gathers the surviving candidates' f32 vectors, computes their distances
-to the per-row query, and sorted-merges the admitted candidates back into the
-beam. Rows converge independently via masks; the loop ends once every row
-is done or at the ``max_iterations`` pop budget. On the card the capped
-steps replay as CUDA graphs and the host reads the live count once per
-replay (``ggnn_torch/utils/graphs.py``, the counterpart of the JAX
-package's ``lax.while_loop``); the eager loop, one read per step, is the
-CPU's and the plain version.
+ids, computes the surviving candidates' distances to the per-row query in
+one fused gather + distance (``ops/gather_dist.py``), and sorted-merges the
+admitted candidates back into the beam. Rows converge independently via
+masks; the loop ends once every row is done or at the ``max_iterations``
+pop budget. On the card the capped steps replay as CUDA graphs and the host
+reads the live count once per replay (``ggnn_torch/utils/graphs.py``, the
+counterpart of the JAX package's ``lax.while_loop``); the eager loop, one
+read per step, is the CPU's and the plain version.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from ggnn_torch.ops.beam import (
     beam_insert,
     beam_pop,
 )
-from ggnn_torch.ops.distance import dist_gathered
+from ggnn_torch.ops.gather_dist import gather_dist
 from ggnn_torch.utils import graphs
 
 __all__ = ["gather_dists", "seed_beam", "best_first_search", "beam_active"]
@@ -48,16 +48,22 @@ def gather_dists(
     to base ids first (merge_layer.cu:118). Invalid ids (-1) produce
     arbitrary distances -- callers mask them.
 
-    Returns (dists [B, K], base_ids [B, K]).
+    Returns (dists [B, K], base_ids [B, K]): one pass of the fused gather +
+    distance (:func:`ggnn_torch.ops.gather_dist.gather_dist`, the kernel on
+    the card), no ``[B, K, D]`` intermediate.
     """
-    safe = ids.clamp_min(0).long()
-    if translation is not None and translation.shape[0]:
-        base_ids = translation[safe].long()
-    else:
-        base_ids = safe
-    vecs = base[base_ids]  # [B, K, D]
-    d = dist_gathered(q_vecs, vecs, measure, q_sq=q_sq, cand_sq=base_sq[base_ids])
-    return d, base_ids
+    d, base_ids = gather_dist(q_vecs[:, None], q_sq[:, None], ids, base,
+                              base_sq, translation, measure)
+    return d[:, 0], base_ids
+
+
+def candidate_dists(q_vecs, q_sq, ids, base, base_sq, translation, measure):
+    """:func:`gather_dists`' distances alone ([B, K]): the walks' steps
+    and the merges' own distances, which discard the base ids, so the
+    kernel writes none."""
+    d, _ = gather_dist(q_vecs[:, None], q_sq[:, None], ids, base, base_sq,
+                       translation, measure, with_ids=False)
+    return d[:, 0]
 
 
 def seed_beam(
@@ -75,7 +81,7 @@ def seed_beam(
     ``fetch_unfiltered``)."""
     ok = beam_dedup_mask(state, seed_ids, valid)
     seed_ids = torch.where(ok, seed_ids, -1).to(torch.int32)
-    d, _ = gather_dists(q_vecs, q_sq, seed_ids, base, base_sq, translation,
+    d = candidate_dists(q_vecs, q_sq, seed_ids, base, base_sq, translation,
                         measure)
     no_crit = torch.full((state.batch,), float("inf"), device=q_vecs.device)
     return beam_insert(state, seed_ids, d, criteria=no_crit)
@@ -146,7 +152,7 @@ def best_first_search(
         valid = (anchors != -1)[:, :, None].expand(B, P, K).reshape(B, P * K)
         # dedup on ids BEFORE fetching vectors, and compact the survivors
         _, cand = beam_dedup_compact(st, nbrs, valid, cap_now)
-        d, _ = gather_dists(c[0], c[1], cand, base, base_sq, translation,
+        d = candidate_dists(c[0], c[1], cand, base, base_sq, translation,
                             measure)
         st = beam_insert(st, cand, d, row_mask=active,
                          criteria=st.criteria(k_best))

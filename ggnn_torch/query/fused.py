@@ -61,6 +61,7 @@ from ggnn_torch.ops.beam import (
     beam_pop,
 )
 from ggnn_torch.ops.distance import dist_block, finish, squared_norms
+from ggnn_torch.ops.gather_dist import gather_dist
 from ggnn_torch.ops.topk import smallest_k_positions, sort_by_dist
 from ggnn_torch.utils import graphs
 
@@ -746,13 +747,11 @@ def _fused_query_tile(q_vecs, index: FusedIndex, base, base_sq, tau, *,
             live_rows=rows,
         )
 
-    # exact re-rank of the top survivors (one small f32 gather)
+    # exact re-rank of the top survivors (the fused gather + distance)
     with record_function("rerank"):
-        safe = result_i.clamp_min(0).long()
-        vecs = base[safe].to(torch.float32)  # [B, R, D]
-        dot = torch.einsum("bd,brd->br", q_vecs, vecs)
-        d = finish(dot, q_sq[:, None], base_sq[safe], measure)
-        d = torch.where(result_i == EMPTY_ID, EMPTY_DIST, d)
+        d, _ = gather_dist(q_vecs[:, None], q_sq[:, None], result_i, base,
+                           base_sq, None, measure, with_ids=False)
+        d = torch.where(result_i == EMPTY_ID, EMPTY_DIST, d[:, 0])
         d, i = sort_by_dist(d, result_i)
         return i[:, :k_query], d[:, :k_query]
 

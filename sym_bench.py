@@ -4,6 +4,7 @@
     python3 sym_bench.py [--n 262144] [--rounds 2]
     python3 sym_bench.py --root DIR [--n 262144]
     python3 sym_bench.py --headline [--root DIR]
+    python3 sym_bench.py --root . [--headline] --plain-gather
 
 Builds the smoke's descent + walk graph (``chip_smoke.py`` phase 8:
 ``dense_seed_merge=False``, ``sym_mode="walk"``, k_build=48, tau_build=0.5,
@@ -33,6 +34,14 @@ memory and digest, to set beside this checkout's.
 refinements, dense-seeded merges, bulk sym) of ``--n`` points (default
 then 1,000,000), with the checkout of ``--root`` if given.
 
+``--plain-gather`` (with ``--root``) builds with the walks' distance steps
+on the plain gather + einsum (``chip_smoke.plain_gather``) instead of the
+fused gather + distance kernel (``csrc/gather_dist.cu``): the graph the
+plain route gives, beside the kernel's. The kernel sums each dot in its
+own order, not cuBLAS's, so the two digests may differ; each build prints
+the route it took beside its digest. What the routes gave on the card is
+stated in ``PERF.md`` section 6.
+
 Needs a CUDA device. The last line is one JSON object with every number.
 """
 
@@ -56,10 +65,11 @@ def graph_digest(g):
     return h.hexdigest()
 
 
-def build(smoke, dev, n, record=None, headline=False):
+def build(smoke, dev, n, record=None, headline=False, plain_gather=False):
     """The descent + walk build of ``n`` points inside ``record`` (a
     context manager, or none), or with ``headline`` the headline's build;
-    returns its numbers, the index and what ``record`` yielded."""
+    returns its numbers, the index and what ``record`` yielded. With
+    ``plain_gather`` the walks' distance steps take the plain gather."""
     from ggnn_torch import GGNN
     from ggnn_torch.utils import graphs
 
@@ -73,7 +83,8 @@ def build(smoke, dev, n, record=None, headline=False):
     before = torch.cuda.memory_allocated(dev)
     releases = graphs.stats().get("releases")
     t0 = time.perf_counter()
-    with record if record is not None else nullcontext() as recorded:
+    with record if record is not None else nullcontext() as recorded, \
+            smoke.plain_gather() if plain_gather else nullcontext():
         g.build(k_build=smoke.K_BUILD, tau_build=smoke.TAU_BUILD,
                 refinement_iterations=2, **kw)
     torch.cuda.synchronize(dev)
@@ -87,6 +98,9 @@ def build(smoke, dev, n, record=None, headline=False):
     phases = g.last_build_stats["shards"][0]["phases"]
     out["sym_s"] = {k: v for k, v in phases.items() if k.startswith("sym[")}
     out["digest"] = graph_digest(g)
+    out["gather_route"] = ("plain" if plain_gather else
+                           "kernel" if hasattr(smoke, "plain_gather") else
+                           "this checkout's (no gather kernel)")
     return out, g, recorded
 
 
@@ -96,8 +110,8 @@ def show(label, b):
           f"peak allocated {b['peak_allocated']} B, reserved "
           f"{b['peak_reserved']} B (allocated before {b['allocated_before']} B)"
           f" | reserved after {b['reserved_after']} B | dead pools' memory "
-          f"released {b.get('pool_releases', 'n/a')} times | graph digest "
-          f"{b['digest'][:16]}", flush=True)
+          f"released {b.get('pool_releases', 'n/a')} times | gather route "
+          f"{b['gather_route']} | graph digest {b['digest'][:16]}", flush=True)
 
 
 def main(argv=None):
@@ -109,11 +123,15 @@ def main(argv=None):
                     help="only build, with the package of this checkout")
     ap.add_argument("--headline", action="store_true",
                     help="only build, the headline's graph")
+    ap.add_argument("--plain-gather", action="store_true",
+                    help="with --root: the walks on the plain gather + einsum")
     args = ap.parse_args(argv)
     if args.n is None:
         args.n = 1_000_000 if args.headline else 262_144
     if not torch.cuda.is_available() or args.rounds < 1:
         sys.exit("sym_bench: needs a CUDA device and --rounds >= 1")
+    if args.plain_gather and args.root is None:
+        sys.exit("sym_bench: --plain-gather only builds: give --root")
     if args.root is not None:
         sys.path.insert(0, os.path.abspath(args.root))
     import chip_smoke as smoke
@@ -127,8 +145,11 @@ def main(argv=None):
     print(smi, flush=True)
     out = {"device": smi, "n": args.n, "root": args.root,
            "headline": args.headline}
+    if args.plain_gather and not hasattr(smoke, "plain_gather"):
+        sys.exit(f"sym_bench: the checkout {args.root} has no gather kernel")
     if args.root is not None or args.headline:
-        out["build"], _, _ = build(smoke, dev, args.n, headline=args.headline)
+        out["build"], _, _ = build(smoke, dev, args.n, headline=args.headline,
+                                   plain_gather=args.plain_gather)
         show(f"{'headline' if args.headline else 'descent + walk'}, checkout "
              f"{args.root or '.'}", out["build"])
         print(json.dumps(out), flush=True)

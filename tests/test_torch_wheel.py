@@ -19,6 +19,7 @@ REPO = Path(__file__).resolve().parents[1]
 SOURCES = {"ggnn_torch/csrc/adjacency_dot.cu",
            "ggnn_torch/csrc/beam_dedup.cu",
            "ggnn_torch/csrc/approx_topk.cu",
+           "ggnn_torch/csrc/gather_dist.cu",
            "ggnn_torch/entry.py",
            "ggnn_torch/native/src/ggnn_native.cpp",
            "ggnn_tpu/native/src/ggnn_native.cpp"}
