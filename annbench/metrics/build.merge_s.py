@@ -1,0 +1,7 @@
+"""``build.merge_s``: seconds of the build's ``merge[..]`` phases (the
+program's ``PhaseTimer``, host clock fenced by a device synchronise)."""
+
+
+def read(run):
+    s = [v for k, v in run.phases.items() if k.startswith("merge[")]
+    return sum(s) if s else None

@@ -1,0 +1,14 @@
+"""``fused.seed_ms_per_kq``: device ms of the work launched inside the fused
+tile's ``seed`` ranges, per 1,000 queries asked (padding rows are not
+queries)."""
+
+from annbench import tracing
+
+
+def read(run):
+    t = run.trace
+    if t is None or not t.queries:
+        return None
+    work = tracing.range_work(t.events, "seed")
+    us = sum(e.get("dur", 0.0) for _, dev, _ in work for e in dev)
+    return us / 1e3 / (t.queries / 1e3) if us else None
