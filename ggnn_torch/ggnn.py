@@ -74,6 +74,7 @@ from ggnn_torch.parallel.sharded import (
 )
 from ggnn_torch.utils import graphs
 from ggnn_torch.utils.logging import logger, vlog
+from ggnn_torch.utils.spans import span
 
 __all__ = ["GGNN", "Results", "ResultsFuture"]
 
@@ -940,11 +941,15 @@ class GGNN:
 
         Engine kwargs: ``pops_per_iter`` (row/fused), ``fetch_cap_fraction``
         (row), ``num_seeds``, ``rerank``, ``cap``, ``chunk``,
-        ``compact_levels``, ``width``, ``seed_approx`` (fused)."""
-        partials = self._query_partials(query, k_query, tau_query,
-                                        max_iterations, measure, engine,
-                                        engine_kwargs)
-        return self._merge_results(partials, k_query)
+        ``compact_levels``, ``width``, ``seed_approx`` (fused).
+
+        The call is the span ``ggnn.query``; its results' way to the host is
+        ``ggnn.to_host`` (``utils/spans.py``)."""
+        with span("ggnn.query"):
+            partials = self._query_partials(query, k_query, tau_query,
+                                            max_iterations, measure, engine,
+                                            engine_kwargs)
+            return self._merge_results(partials, k_query)
 
     def query_async(self, query, k_query: int, tau_query: float,
                     max_iterations: int = 400,
@@ -952,16 +957,23 @@ class GGNN:
                     engine: str = "row", **engine_kwargs) -> ResultsFuture:
         """Queue a query batch (either engine); the host copy of its results
         waits until ``.result()`` is called, and a host merge runs on the
-        I/O pool meanwhile."""
-        partials = self._query_partials(query, k_query, tau_query,
-                                        max_iterations, measure, engine,
-                                        engine_kwargs)
-        if self._on_host(partials):
-            fut = self._io_pool().submit(
-                lambda: self._finalize_host(*self._merge_on_host(partials, k_query)))
-            return ResultsFuture(fut.result)
-        ids, dists = self._merge_on_device(partials, k_query)
-        return ResultsFuture(lambda: self._finalize(ids, dists))
+        I/O pool meanwhile. The submit is the span ``ggnn.query``."""
+        with span("ggnn.query"):
+            partials = self._query_partials(query, k_query, tau_query,
+                                            max_iterations, measure, engine,
+                                            engine_kwargs)
+            if self._on_host(partials):
+                fut = self._io_pool().submit(
+                    lambda: self._finalize_host(
+                        *self._merge_on_host(partials, k_query)))
+
+                def wait():
+                    with span("ggnn.to_host"):
+                        return fut.result()
+
+                return ResultsFuture(wait)
+            ids, dists = self._merge_on_device(partials, k_query)
+            return ResultsFuture(lambda: self._finalize(ids, dists))
 
     def bf_query(self, query, k_gt: int = 100,
                  measure: DistanceMeasure | None = None) -> Results:
@@ -1032,8 +1044,9 @@ class GGNN:
         ResultMerger): the native k-way merger when it is built, else -- and
         where it raises -- numpy's stable sort, with a warning. Both keep
         the device merge's tie order."""
-        ids = np.stack([p[0].cpu().numpy() for p in partials])
-        dists = np.stack([p[1].cpu().numpy() for p in partials])
+        with span("ggnn.to_host"):
+            ids = np.stack([p[0].cpu().numpy() for p in partials])
+            dists = np.stack([p[1].cpu().numpy() for p in partials])
         if native_merge.available():
             try:
                 return native_merge.merge_topk_partials(ids, dists, k)
@@ -1051,7 +1064,8 @@ class GGNN:
     def _finalize(self, ids, dists) -> Results:
         if self._return_results_on_device:
             return Results(ids, dists)
-        return Results(ids.cpu().numpy(), dists.cpu().numpy())
+        with span("ggnn.to_host"):
+            return Results(ids.cpu().numpy(), dists.cpu().numpy())
 
     def _finalize_host(self, ids: np.ndarray, dists: np.ndarray) -> Results:
         """Host-merged results, uploaded to the first slot's device when

@@ -25,6 +25,7 @@ from ggnn_torch.ops.beam import BeamState, Slack, beam_init, beam_insert
 from ggnn_torch.ops.distance import dist_block, squared_norms
 from ggnn_torch.ops.traverse import beam_active, best_first_search
 from ggnn_torch.query.fused import pad_rows, tile_plan
+from ggnn_torch.utils.spans import span
 
 __all__ = ["ann_query"]
 
@@ -55,19 +56,22 @@ def _query_cold(q_vecs, nbr0, starting_points, base, base_sq, nn1_stats,
     state = beam_init(B, width, xi0, vis_size, device=q_vecs.device)
 
     # seed with the S starting points: one dense [B, S] f32 distance tile
-    sp = starting_points.long()
-    seed_d = dist_block(q_vecs, base[sp], measure, q_sq=q_sq, c_sq=base_sq[sp])
-    seed_ids = starting_points.to(torch.int32)[None, :].expand(B, -1)
-    no_crit = torch.full((B,), float("inf"), device=q_vecs.device)
-    real = (None if rows is None or rows == B
-            else torch.arange(B, device=q_vecs.device) < rows)
-    state = beam_insert(state, seed_ids, seed_d, real, criteria=no_crit)
+    with span("seed"):
+        sp = starting_points.long()
+        seed_d = dist_block(q_vecs, base[sp], measure, q_sq=q_sq,
+                            c_sq=base_sq[sp])
+        seed_ids = starting_points.to(torch.int32)[None, :].expand(B, -1)
+        no_crit = torch.full((B,), float("inf"), device=q_vecs.device)
+        real = (None if rows is None or rows == B
+                else torch.arange(B, device=q_vecs.device) < rows)
+        state = beam_insert(state, seed_ids, seed_d, real, criteria=no_crit)
 
-    state = best_first_search(
-        state, q_vecs, q_sq, nbr0, base, base_sq, None, measure, budget,
-        k_best=k_query, dynamic_xi=dyn, pops_per_iter=pops_per_iter,
-        fetch_cap_fraction=fetch_cap_fraction, route=route,
-    )
+    with span("walk"):
+        state = best_first_search(
+            state, q_vecs, q_sq, nbr0, base, base_sq, None, measure, budget,
+            k_best=k_query, dynamic_xi=dyn, pops_per_iter=pops_per_iter,
+            fetch_cap_fraction=fetch_cap_fraction, route=route,
+        )
     return state, beam_active(state, k_query)
 
 
@@ -78,11 +82,12 @@ def _query_warm(state, q_vecs, nbr0, base, base_sq, nn1_stats, tau_query, *,
     q_vecs = q_vecs.to(torch.float32)
     q_sq = torch.sum(q_vecs * q_vecs, dim=-1)
     _, dyn = _dynamic_xi(nn1_stats, tau_query, measure)
-    return best_first_search(
-        state, q_vecs, q_sq, nbr0, base, base_sq, None, measure, budget,
-        k_best=k_query, dynamic_xi=dyn, pops_per_iter=pops_per_iter,
-        fetch_cap_fraction=fetch_cap_fraction, warm=True, route=route,
-    )
+    with span("walk"):
+        return best_first_search(
+            state, q_vecs, q_sq, nbr0, base, base_sq, None, measure, budget,
+            k_best=k_query, dynamic_xi=dyn, pops_per_iter=pops_per_iter,
+            fetch_cap_fraction=fetch_cap_fraction, warm=True, route=route,
+        )
 
 
 @torch.no_grad()
@@ -115,7 +120,9 @@ def ann_query(
     after id-dedup (ops/traverse.py). ``two_phase`` compacts converged rows
     out of the sweep after a quarter of the budget (only for Q >= 2048 and a
     budget of at least 8 steps). Queries run in tiles of ``chunk`` rows, the
-    last one padded (``query/fused.py:tile_plan``).
+    last one padded (``query/fused.py:tile_plan``). Each tile is the span
+    ``tile[<rows>/<tile rows>]``, its stages the spans ``seed`` (the dense
+    seeding product and its insert) and ``walk`` (``utils/spans.py``).
     ``route``: how the walk's loop runs (:mod:`ggnn_torch.utils.graphs`):
     by default as CUDA graphs on the card and eagerly on the CPU;
     ``graphs.EAGER`` is the plain version.
@@ -146,13 +153,14 @@ def ann_query(
 
     states, actives = [], []
     for lo, rows, tile in tile_plan(Q, chunk, dev):
-        st, act = _query_cold(
-            pad_rows(query[lo : lo + rows], tile), nbr0, starting_points, base,
-            base_sq, nn1_stats, tau, width=width, vis_size=vis_size, budget=t1,
-            rows=rows, **walk,
-        )
-        states.append(st.select(slice(0, rows)))
-        actives.append(act[:rows])
+        with span("tile[%d/%d]", rows, tile):
+            st, act = _query_cold(
+                pad_rows(query[lo : lo + rows], tile), nbr0, starting_points,
+                base, base_sq, nn1_stats, tau, width=width, vis_size=vis_size,
+                budget=t1, rows=rows, **walk,
+            )
+            states.append(st.select(slice(0, rows)))
+            actives.append(act[:rows])
     state = BeamState(*(torch.cat(xs) for xs in zip(*states)))
     ids, dists = state.best(KQuery)
     if not (use_two_phase and t2 > 0):

@@ -46,7 +46,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ggnn_torch.config import DistanceMeasure, GraphConfig
 from ggnn_torch.graph import Graph
@@ -64,6 +63,7 @@ from ggnn_torch.ops.distance import dist_block, finish, squared_norms
 from ggnn_torch.ops.gather_dist import gather_dist
 from ggnn_torch.ops.topk import smallest_k_positions, sort_by_dist
 from ggnn_torch.utils import graphs
+from ggnn_torch.utils.spans import span
 
 __all__ = [
     "AdjacencyTables",
@@ -702,7 +702,7 @@ def _fused_query_tile(q_vecs, index: FusedIndex, base, base_sq, tau, *,
     """One tile's seed, walk and re-rank; only its first ``rows`` rows are
     queries (all by default), the rest pad it to its planned size: they
     are not seeded, so their walk is dead from the first pop. Each stage
-    runs under a ``torch.profiler`` range: ``seed``, ``walk``, ``rerank``.
+    is a span (``utils/spans.py``): ``seed``, ``walk``, ``rerank``.
     ``seed_approx``: the seeds are ``jax.lax.approx_min_k``'s as the TPU
     computes it (``ops/approx_topk.py``), else the exact top-k."""
     B = q_vecs.shape[0]
@@ -722,7 +722,7 @@ def _fused_query_tile(q_vecs, index: FusedIndex, base, base_sq, tau, *,
     state = beam_init(B, width, xi0, vis_size, device=q_vecs.device)
 
     # seed: dense rep scan, the best num_seeds enter the beam
-    with record_function("seed"):
+    with span("seed"):
         if seed_approx:
             seed_d, pos = dist_approx_smallest_k(
                 q_vecs, index.rep_vecs, num_seeds, measure, q_sq=q_sq,
@@ -739,7 +739,7 @@ def _fused_query_tile(q_vecs, index: FusedIndex, base, base_sq, tau, *,
         state = beam_insert(state, seed_ids, seed_d, real, criteria=no_crit)
 
     R = min(rerank, width)
-    with record_function("walk"):
+    with span("walk"):
         result_i, _ = _best_first_phases(
             state, q_vecs, q_sq, index, measure,
             steps=-(-max_iterations // P), k_best=k_query, P=P, cap=cap,
@@ -748,7 +748,7 @@ def _fused_query_tile(q_vecs, index: FusedIndex, base, base_sq, tau, *,
         )
 
     # exact re-rank of the top survivors (the fused gather + distance)
-    with record_function("rerank"):
+    with span("rerank"):
         d, _ = gather_dist(q_vecs[:, None], q_sq[:, None], result_i, base,
                            base_sq, None, measure, with_ids=False)
         d = torch.where(result_i == EMPTY_ID, EMPTY_DIST, d[:, 0])
@@ -782,7 +782,8 @@ def fused_query(
     Same user parameters as the reference query (KQuery, tau_query,
     max_iterations -- the total anchor-pop budget, ggnn.cuh:144-155).
     Queries run in tiles of ``chunk`` rows, the last one padded by
-    :func:`tile_plan`. ``route``: how the walk's loop runs
+    :func:`tile_plan`; each tile is the span ``tile[<rows>/<tile rows>]``.
+    ``route``: how the walk's loop runs
     (:mod:`ggnn_torch.utils.graphs`): by default as CUDA graphs on the card
     and eagerly on the CPU; ``graphs.EAGER`` is the plain version.
     ``seed_approx``: pick the seeds as the TPU's ``approx_min_k`` does
@@ -821,15 +822,16 @@ def fused_query(
     num_seeds = min(num_seeds, int(index.rep_ids.shape[0]))
     outs = []
     for lo, rows, tile in tile_plan(Q, chunk, dev):
-        ids, dists = _fused_query_tile(
-            pad_rows(query[lo : lo + rows], tile), index, base, base_sq, tau,
-            width=width, vis_size=vis_size, k_query=KQuery, measure=measure,
-            max_iterations=max_iterations, pops_per_iter=P,
-            num_seeds=num_seeds, rerank=rerank, cap=cap,
-            compact_levels=max(0, compact_levels), route=route, rows=rows,
-            seed_approx=seed_approx,
-        )
-        outs.append((ids[:rows], dists[:rows]))
+        with span("tile[%d/%d]", rows, tile):
+            ids, dists = _fused_query_tile(
+                pad_rows(query[lo : lo + rows], tile), index, base, base_sq,
+                tau, width=width, vis_size=vis_size, k_query=KQuery,
+                measure=measure, max_iterations=max_iterations,
+                pops_per_iter=P, num_seeds=num_seeds, rerank=rerank, cap=cap,
+                compact_levels=max(0, compact_levels), route=route, rows=rows,
+                seed_approx=seed_approx,
+            )
+            outs.append((ids[:rows], dists[:rows]))
     return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 

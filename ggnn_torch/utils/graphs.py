@@ -60,6 +60,11 @@ allocations during a capture do not break it; a device-wide synchronise
 lock (:func:`synchronize`). The warm-up step before a program's first
 capture runs on the capturing thread's side stream (kernel libraries are
 built and the cuBLAS workspace is made there, never inside the capture).
+
+Under ``torch.profiler`` a program's launch is the span ``graphs.replay``,
+its capture ``graphs.capture`` (around the capture, never inside it) and
+each live-count read ``graphs.live_read`` (``utils/spans.py:span``): they
+count what :func:`stats` counts.
 """
 
 from __future__ import annotations
@@ -71,6 +76,8 @@ from collections import OrderedDict, deque
 from contextlib import contextmanager
 
 import torch
+
+from ggnn_torch.utils.spans import span
 
 __all__ = [
     "EAGER",
@@ -190,9 +197,13 @@ def thread_live_reads() -> int:
     return getattr(_tls, "live_reads", 0)
 
 
-def _read_live() -> None:
+def _read_live(count: torch.Tensor) -> int:
+    """One live-count read: the host waits for ``count``."""
+    with span("graphs.live_read"):
+        n = int(count)
     _tls.live_reads = thread_live_reads() + 1
     _bump("live_reads")
+    return n
 
 
 def _side_stream(device: torch.device):
@@ -258,7 +269,7 @@ class _Program:
 
     def _capture(self, step, n: int) -> None:
         dev = self.device
-        with _holding(_capture_lock):
+        with span("graphs.capture"), _holding(_capture_lock):
             side = _side_stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
@@ -300,16 +311,18 @@ class _Program:
         """Run ``n`` steps of ``step`` (capturing their graph first if
         needed; on the CPU without a graph); the live-row count is left in
         ``count``."""
-        if self.device.type != "cuda":
-            self._steps(step, n)
-        else:
-            if n not in self.graphs:
-                self._capture(step, n)
-            graph, launches = self.graphs[n]
-            graph.replay()
-            for fn, args in launches:
-                fn(*args)
-        _bump("replays")
+        cuda = self.device.type == "cuda"
+        if cuda and n not in self.graphs:
+            self._capture(step, n)
+        with span("graphs.replay"):
+            if not cuda:
+                self._steps(step, n)
+            else:
+                graph, launches = self.graphs[n]
+                graph.replay()
+                for fn, args in launches:
+                    fn(*args)
+            _bump("replays")
 
 
 def _key(name, carry, consts, reads):
@@ -463,8 +476,7 @@ def run_steps(step, carry, consts, live, *, it: int, steps: int, live_n: int,
             carry, live = step(carry, consts)
             it += 1
             if it < steps:
-                live_n = int(live.sum())
-                _read_live()
+                live_n = _read_live(live.sum())
         return carry, live, it, live_n
     _reap()
     prog = _program(name, carry, consts, live, reads, fresh_pool)
@@ -475,8 +487,7 @@ def run_steps(step, carry, consts, live, *, it: int, steps: int, live_n: int,
             prog.replay(step, n)
             it += n
             if it < steps:
-                live_n = int(prog.count)
-                _read_live()
+                live_n = _read_live(prog.count)
         carry, live = prog.unload()
     del prog  # an evicted program dies here, and its pool's memory with it
     _release()
