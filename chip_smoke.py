@@ -74,6 +74,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    graph of launches, as in phase 3b), its host path's, the plain
    version's, ``torch.bmm`` alone on rows gathered beforehand, the bound
    by distinct rows and by gathered rows and the shares of both.
+3e. The beam ops' sort kernel (``ops/beam_sort.py``) against the
+   ``torch.sort`` route (``beam_insert_plain``, ``cap_candidates_plain``)
+   on the same inputs at ``BEAM_SORT_SHAPES``: the benchmark cells' walks
+   at 10,240 rows (the row query's 64 + 144 and uncapped 64 + 192, the
+   fused query's 32 + 32 and its cap cut 192 -> 32), the build merges' and
+   the sym walk's at 8,192, the smoke's k_build 48 row step. Every
+   distance's bits, id and flag must equal the route's (0 differing
+   entries); printed with the admitted share, the kernel's device ms (a
+   CUDA graph of launches, as in phase 3b), its host path's, the route's,
+   ``torch.sort`` alone on the row's distances, the bytes bound and its
+   share, the keys a lane and rows a block.
 4. Main path: ``GGNN(device="cuda")`` builds a 262,144-point graph
    (k_build=48, tau_build=0.5, 2 refinements) over the benchmark's
    synthetic SIFT-like data, derives the fused index, computes brute-force
@@ -250,7 +261,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    inputs; launches per path), ``gather_dist`` (phase 3d's numbers at
    every shape, the bytes bound, ``library_ms`` ``torch.bmm`` on
    pre-gathered rows; the row call and the sym walk chunk on both gather
-   routes; launches per path), then the last line ``{"ok": true,
+   routes; launches per path), ``beam_sort`` (phase 3e's numbers at every
+   shape, the bytes bound, ``library_ms`` ``torch.sort`` alone; launches of
+   the kernel and of the torch.sort route per path), then the last line
+   ``{"ok": true,
    "device": {...}}``.
 
 Every phase prints its seconds. Every kernel's launch counts are set to 0
@@ -290,7 +304,7 @@ from ggnn_torch.build import construction
 from ggnn_torch.build import sym as sym_mod
 from ggnn_torch.entry import dryrun_multichip, entry
 from ggnn_torch.native import merge as native_merge
-from ggnn_torch.ops import adjacency, approx_topk, beam, gather_dist
+from ggnn_torch.ops import adjacency, approx_topk, beam, beam_sort, gather_dist
 from ggnn_torch.ops.distance import finish, squared_norms
 from ggnn_torch.ops.topk import smallest_k_positions
 from ggnn_torch.ops import traverse as traverse_mod
@@ -392,6 +406,21 @@ GATHER_SHAPES = [
     ("D 20, K 1", 256, 1, 1, "f32", 20, "euclidean", 4096, True),
     ("D 20, u8, cosine", 256, 40, 2, "u8", 20, "cosine", 4096, False),
     ("u8, cosine, translated", 256, 40, 1, "u8", D, "cosine", 4096, True),
+]
+
+# the sort kernel's check shapes: (label, rows, beam W, candidates K, kept
+# columns: None for an insert, else the cut's cap) -- the benchmark cells'
+# walks at their 10,240-row tiles (k_build 24, P 8), the build merges' and
+# the sym walk's at 8,192, the smoke's own k_build 48 row step
+BEAM_SORT_SHAPES = [
+    ("row query step", 10240, 64, 144, None),
+    ("row query uncapped step", 10240, 64, 192, None),
+    ("fused query step", 10240, 32, 32, None),
+    ("fused query cap cut", 10240, 0, 192, 32),
+    ("fused merge cap cut", 8192, 0, 192, 64),
+    ("fused merge step", 8192, 64, 64, None),
+    ("f32 merge and sym walk step", 8192, 64, 96, None),
+    ("k_build 48 row step", 8192, 64, 288, None),
 ]
 
 
@@ -634,6 +663,116 @@ def check_dedup(device, shapes=DEDUP_SHAPES):
         out[label] = measure_dedup(device, label, B, K, W, V, cap,
                                    dedup_resources(res, cap is not None, K))
         torch.cuda.empty_cache()
+    return out
+
+
+def beam_sort_inputs(device, B, W, K, seed=0):
+    """A beam as a walk leaves it and a tile of candidates on ``device``:
+    each row's finite distances ascending in a prefix of 1/2 to all of W,
+    a fifth of its columns blanked to +inf (``beam_pop``'s holes), a fifth
+    of the candidates -1 and their distances uniform on [0, 2); criteria
+    0.5 (about a quarter admitted) and a row mask of ~90%. Returns (state,
+    ids, dists, criteria, row_mask)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=device)
+
+    col = torch.arange(W, device=device)[None, :]
+    fill = (W * (0.5 + 0.5 * rand(B, 1))).long()
+    hole = (col >= fill) | (rand(B, W) < 0.2)
+    d = torch.where(hole, float("inf"), torch.sort(rand(B, W), dim=-1)[0])
+    i = torch.where(hole, -1, torch.randint(0, 1 << 24, (B, W), generator=g,
+                                            device=device, dtype=torch.int32))
+    exp = rand(B, W) < 0.5
+    state = beam.BeamState(d, i, exp, torch.full((B, 1), -1, dtype=torch.int32,
+                                                 device=device),
+                           torch.zeros(B, dtype=torch.int32, device=device),
+                           torch.zeros(B, device=device))
+    ids = torch.randint(1 << 24, 1 << 25, (B, K), generator=g, device=device,
+                        dtype=torch.int32)
+    ids = torch.where(rand(B, K) < 0.2, -1, ids)
+    crit = torch.full((B,), 0.5, device=device)
+    return state, ids, 2 * rand(B, K), crit, rand(B) < 0.9
+
+
+def measure_beam_sort(device, label, B, W, K, cap, resources=None):
+    """The sort kernel (through ``beam_insert`` or ``cap_candidates``)
+    against the torch.sort route on the same inputs at one shape: the
+    entries that differ (must be 0); the kernel's device ms
+    (:func:`replay_ms`) and its host path's, the route's device ms,
+    ``torch.sort`` alone on the row's distances, the bytes bound and its
+    share, the keys a lane and rows a block."""
+    st, ids, d, crit, mask = beam_sort_inputs(device, B, W, K)
+    if cap is None:
+        def run():
+            return beam.beam_insert(st, ids, d, mask, criteria=crit)[:3]
+
+        def plain():
+            return beam.beam_insert_plain(st, ids, d, mask, criteria=crit)[:3]
+        keys = torch.cat([st.d, d], dim=-1)
+        out = W
+    else:
+        def run():
+            return beam.cap_candidates(ids, d, cap, criteria=crit)
+
+        def plain():
+            return beam.cap_candidates_plain(ids, d, cap, criteria=crit)
+        keys = d
+        out = cap
+    got, want = run(), plain()
+    _sync(device)
+    differ = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                 if a.dtype == torch.float32 else int((a != b).sum())
+                 for a, b in zip(got, want))
+    admitted = float(((ids != -1) & (d < crit[:, None])).float().mean())
+    if differ:
+        raise AssertionError(f"beam sort ({label}) differs from the torch.sort "
+                             f"route in {differ} entries")
+    ms = replay_ms(run, device)
+    host_ms, _ = time_ms(run, device)
+    plain_ms = replay_ms(plain, device)
+    sort_ms = replay_ms(lambda: torch.sort(keys, dim=-1, stable=True), device)
+    # each input read once (beam 9 B an entry, a candidate 8, a row's
+    # criterion 4 and mask 1), each output written once (9 B, 8 for a cut)
+    nbytes = B * (W * 9 + K * 8 + 4 + (1 if cap is None else 0)
+                  + out * (9 if cap is None else 8))
+    bound_ms = nbytes / HBM_BYTES_S * 1e3
+    n = W + K
+    lanes = beam_sort.keys_per_lane(W, K) if device.type == "cuda" else None
+    rows = beam_sort.rows_per_block(W, K)
+    what = "insert" if cap is None else f"cut to {cap}"
+    timing = (f"device: a CUDA graph of {DEDUP_LAUNCHES} launches"
+              if device.type == "cuda" else "host clock, CPU")
+    print(f"beam sort {label} ({what}) B={B} W={W} K={K}: admitted "
+          f"{admitted:.3f} | differing entries {differ} | kernel {ms:.4f} ms "
+          f"({timing}) | host path {host_ms:.4f} ms | torch.sort route "
+          f"{plain_ms:.4f} ms | torch.sort alone [B, {n}] {sort_ms:.4f} ms | "
+          f"bound {bound_ms:.4f} ms ({nbytes} B at 3.35 TB/s) | share of bound "
+          f"{bound_ms / ms:.3f} | keys a lane {lanes}, rows per block {rows} | "
+          f"resources {json.dumps(resources)}", flush=True)
+    return {"max_abs_err": 0, "differing": differ, "ms": ms, "host_ms": host_ms,
+            "plain_ms": plain_ms, "library_ms": sort_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "bound_share": bound_ms / ms, "bytes": nbytes,
+            "admitted": admitted, "keys_per_lane": lanes, "rows_per_block": rows}
+
+
+def check_beam_sort(device, shapes=BEAM_SORT_SHAPES):
+    """Phase 3e: the sort kernel against the torch.sort route at each
+    walk's shape. Returns {label: numbers}."""
+    res = None
+    if device.type == "cuda":
+        beam_sort.build_kernel()  # 0.0 where phase 2 built it
+        res = beam_sort.kernel_resources()
+    out = {}
+    for label, B, W, K, cap in shapes:
+        lanes = beam_sort.keys_per_lane(W, K)
+        inst = next(({f: r[f] for f in ("REG", "SHARED", "LOCAL", "STACK") if f in r}
+                     for name, r in (res or {}).items()
+                     if f"kernelILi{lanes}E" in name), "not available")
+        out[label] = measure_beam_sort(device, label, B, W, K, cap, inst)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1339,19 +1478,23 @@ def zero_launches():
     beam.launches = beam.launches_compact = 0
     approx_topk.launches = 0
     gather_dist.launches = 0
+    beam_sort.launches = beam_sort.launches_torch = 0
 
 
 def launches_now():
     """Every kernel's launches since :func:`zero_launches`: the adjacency
     kernel's (and those in int4 mode), the dedup kernel's alone and fused
     with the compaction, the seeding's approximate top-k's, the walks'
-    fused gather + distance's."""
+    fused gather + distance's, the beam ops' sort kernel's and their
+    torch.sort route's."""
     return {"adjacency_dot": adjacency.launches,
             "adjacency_dot_nibbles": adjacency.launches_nibbles,
             "beam_dedup": beam.launches - beam.launches_compact,
             "beam_dedup_compact": beam.launches_compact,
             "approx_topk": approx_topk.launches,
-            "gather_dist": gather_dist.launches}
+            "gather_dist": gather_dist.launches,
+            "beam_sort": beam_sort.launches,
+            "beam_sort_torch": beam_sort.launches_torch}
 
 
 def _minus(a, b):
@@ -2480,7 +2623,8 @@ def run(device):
     # count of its SASS, from the toolkit's cuobjdump
     resources = {}
     for label, m in (("adjacency_dot", adjacency), ("beam_dedup", beam),
-                     ("approx_topk", approx_topk), ("gather_dist", gather_dist)):
+                     ("approx_topk", approx_topk), ("gather_dist", gather_dist),
+                     ("beam_sort", beam_sort)):
         res = m.kernel_resources()
         resources[label] = "not available" if res is None else {
             k: {f: r[f] for f in ("REG", "SHARED", "LOCAL", "STACK", "I2F")
@@ -2502,6 +2646,8 @@ def run(device):
     t0 = _phase("approx top-k kernel vs plain", t0)
     gather = check_gather(device)
     t0 = _phase("gather + distance kernel vs plain", t0)
+    sorts = check_beam_sort(device)
+    t0 = _phase("beam sort kernel vs torch.sort route", t0)
 
     allocated = torch.cuda.memory_allocated(device)
     summary, ctx = main_path(device)
@@ -2520,6 +2666,8 @@ def run(device):
     _not_launched(f32_counts["adjacency_dot"], "the f32-fetch build")
     _dedup_launched(f32_counts, "the f32-fetch build", device, compact=True)
     _gather_launched(f32_counts, "the f32-fetch build", device)
+    _launched(f32_counts["beam_sort"], "the f32-fetch build", device,
+              "the sort kernel")
     torch.cuda.empty_cache()
     t0 = _phase("f32-fetch build + row sweep", t0)
     descent_counts, descent = descent_path(device)
@@ -2529,6 +2677,8 @@ def run(device):
     _dedup_launched(descent_counts, "the descent build's sym walks", device,
                     compact=True)
     _gather_launched(descent_counts, "the descent build", device)
+    _launched(descent_counts["beam_sort"], "the descent build", device,
+              "the sort kernel")
     torch.cuda.empty_cache()
     t0 = _phase("descent build + row sweep", t0)
     sharded = shards_path(device)
@@ -2717,6 +2867,28 @@ def run(device):
             headline_build=headline_stats["gather_launches_build"],
             headline_queries=headline_stats["gather_launches_queries"]),
         "resources": resources["gather_dist"],
+    })
+    # the beam ops' sort kernel, at its callers' shapes; the top-level
+    # numbers at the row query's step. ``library_ms``: torch.sort alone on
+    # the rows' distances (the route adds the criterion, the payload's
+    # gather and the row mask)
+    kernels.append({
+        "name": "beam_sort",
+        "route": "cuda",
+        "source": "ggnn_torch/csrc/beam_sort.cu",
+        # no Pallas kernel: XLA's TPU sort of beam_insert and the cap cut
+        "replaces": "ggnn_tpu/ops/beam.py:191, ggnn_tpu/query/fused.py:527",
+        "launches": sum(per_path("beam_sort").values()),
+        **numbers(sorts["row query step"], ("host_ms", "library_ms",
+                                            "differing", "admitted")),
+        "library": "torch.sort alone on the rows' distances",
+        "shapes": {label: numbers(r, ("host_ms", "library_ms", "differing",
+                                      "admitted", "keys_per_lane",
+                                      "rows_per_block"))
+                   for label, r in sorts.items()},
+        "launches_per_path": per_path("beam_sort"),
+        "torch_route_per_path": per_path("beam_sort_torch"),
+        "resources": resources["beam_sort"],
     })
     # the card's line again beside the numbers, should the head of the log
     # be cut

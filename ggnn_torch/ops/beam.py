@@ -34,6 +34,12 @@ kernel on CUDA tensors (:func:`beam_dedup_mask`, :func:`beam_dedup_compact`;
 ``csrc/beam_dedup.cu``, built by ``utils/nvcc.py`` at first use); CPU
 tensors take the plain versions :func:`beam_dedup_mask_plain` and
 :func:`beam_compact_candidates_plain`, which are also the kernel's oracle.
+The sorted merge of :func:`beam_insert` and the fused step's cap cut
+(:func:`cap_candidates`) run as a second kernel on CUDA tensors of at most
+``beam_sort.MAX_KEYS`` keys a row (``ops/beam_sort.py``,
+``csrc/beam_sort.cu``); wider rows on the card take the ``torch.sort``
+route, which is the plain version (:func:`beam_insert_plain`,
+:func:`cap_candidates_plain`) that CPU tensors take.
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ from typing import NamedTuple
 import torch
 
 from ggnn_torch.config import DistanceMeasure
+from ggnn_torch.ops import beam_sort
+from ggnn_torch.ops.topk import sort_by_dist
 from ggnn_torch.utils import graphs, nvcc
 
 __all__ = [
@@ -57,8 +65,11 @@ __all__ = [
     "beam_dedup_compact",
     "beam_compact_candidates_plain",
     "beam_insert",
+    "beam_insert_plain",
     "beam_pop",
     "beam_transform",
+    "cap_candidates",
+    "cap_candidates_plain",
 ]
 
 EMPTY_ID = -1
@@ -205,10 +216,11 @@ def library_path() -> Path:
 
 
 def build_kernel() -> float:
-    """Compile the dedup kernel's library unless the library of this source
-    and these flags exists. Returns the seconds the build took (0.0 when it
-    was there)."""
-    return nvcc.build("beam_dedup", KERNEL_SOURCE)
+    """Compile the beam ops' kernel libraries, the dedup's and the sorted
+    merge's (``beam_sort.build_kernel``), unless the library of each source
+    and these flags exists. Returns the seconds the builds took (0.0 when
+    both were there)."""
+    return nvcc.build("beam_dedup", KERNEL_SOURCE) + beam_sort.build_kernel()
 
 
 def kernel_resources():
@@ -400,7 +412,34 @@ def beam_insert(
     here; ids must already be unique vs the beam and within the tile (see
     :func:`beam_dedup_mask`). EMPTY ids are ignored. Entries pushed past
     column W fall off -- exactly the reference's finite sorted cache.
+
+    CUDA tensors of at most ``beam_sort.MAX_KEYS`` keys a row (W + K)
+    launch the sort kernel, which needs int32 ids, f32 distances and the
+    beam's finite entries ascending with the rest +inf (as every beam of
+    this module is); wider rows on the card take the ``torch.sort`` route,
+    and tensors elsewhere the same code (:func:`beam_insert_plain`).
     """
+    if cand_i.device.type == "cuda":
+        if beam_sort.route(state.width, cand_i.shape[1]) == beam_sort.KERNEL:
+            d, i, exp = beam_sort.merge(
+                cand_i, cand_d, criteria, state.width,
+                beam=(state.d, state.i, state.exp), row_mask=row_mask)
+            return state._replace(d=d, i=i, exp=exp)
+        beam_sort.count_torch()
+    return beam_insert_plain(state, cand_i, cand_d, row_mask,
+                             criteria=criteria)
+
+
+def beam_insert_plain(
+    state: BeamState,
+    cand_i: torch.Tensor,
+    cand_d: torch.Tensor,
+    row_mask: torch.Tensor | None = None,
+    *,
+    criteria: torch.Tensor,
+) -> BeamState:
+    """:func:`beam_insert` as a stable ``torch.sort`` of the beam and the
+    candidates side by side: the plain version of the sort kernel."""
     ok = (cand_i != EMPTY_ID) & (cand_d < criteria[:, None])
     cand_d = torch.where(ok, cand_d, EMPTY_DIST)
     cand_i = torch.where(ok, cand_i, EMPTY_ID)
@@ -423,6 +462,40 @@ def beam_insert(
         i = torch.where(m, i, state.i)
         exp = torch.where(m, exp, state.exp)
     return state._replace(d=d, i=i, exp=exp)
+
+
+def cap_candidates(cand_i: torch.Tensor, cand_d: torch.Tensor, cap: int, *,
+                   criteria: torch.Tensor):
+    """The candidates below their row's criterion, the others as (EMPTY_ID,
+    EMPTY_DIST); where ``cap`` < K the ``cap`` nearest of them, ascending
+    (equal distances in column order), else all K in column order: the
+    fused step's filter and cap cut. Returns (ids, dists).
+
+    A cut of CUDA tensors of at most ``beam_sort.MAX_KEYS`` candidates a
+    row launches the sort kernel (int32 ids, f32 distances); a wider one
+    takes the ``torch.sort`` route, and tensors elsewhere the same code
+    (:func:`cap_candidates_plain`).
+    """
+    K = cand_i.shape[1]
+    if cap < K and cand_i.device.type == "cuda":
+        if beam_sort.route(0, K) == beam_sort.KERNEL:
+            d, ids = beam_sort.merge(cand_i, cand_d, criteria, cap)
+            return ids, d
+        beam_sort.count_torch()
+    return cap_candidates_plain(cand_i, cand_d, cap, criteria=criteria)
+
+
+def cap_candidates_plain(cand_i: torch.Tensor, cand_d: torch.Tensor, cap: int,
+                         *, criteria: torch.Tensor):
+    """:func:`cap_candidates` as a stable ``torch.sort``: the plain version
+    of the sort kernel's cut."""
+    d = torch.where((cand_i != EMPTY_ID) & (cand_d < criteria[:, None]),
+                    cand_d, EMPTY_DIST)
+    ids = torch.where(torch.isfinite(d), cand_i, EMPTY_ID)
+    if cap < d.shape[1]:
+        d, ids = sort_by_dist(d, ids)
+        d, ids = d[:, :cap], ids[:, :cap]
+    return ids, d
 
 
 def beam_pop(

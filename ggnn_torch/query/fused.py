@@ -58,6 +58,7 @@ from ggnn_torch.ops.beam import (
     beam_init,
     beam_insert,
     beam_pop,
+    cap_candidates,
 )
 from ggnn_torch.ops.distance import dist_block, finish, squared_norms
 from ggnn_torch.ops.gather_dist import gather_dist
@@ -557,11 +558,7 @@ def _fused_step(st: BeamState, q_vecs, q_sq, zdot, index, measure, *, k_best,
     anchors, active, st = beam_pop(st, P, k_best)
     ids, d = _code_dists(q_vecs, q_sq, anchors, index, measure, zdot)
     crit = st.criteria(k_best)
-    d = torch.where((ids != EMPTY_ID) & (d < crit[:, None]), d, EMPTY_DIST)
-    ids = torch.where(torch.isfinite(d), ids, EMPTY_ID)
-    if cap < d.shape[1]:
-        d, ids = sort_by_dist(d, ids)
-        d, ids = d[:, :cap], ids[:, :cap]
+    ids, d = cap_candidates(ids, d, cap, criteria=crit)
     ok = beam_dedup_mask(st, ids)
     ids = torch.where(ok, ids, EMPTY_ID)
     st = beam_insert(st, ids, d, row_mask=active, criteria=crit)
