@@ -29,10 +29,14 @@ __all__ = [
     "adjacency_dot",
     "adjacency_dot_plain",
     "build_kernel",
+    "count_fetched",
+    "fetched_anchors",
     "kernel_resources",
     "library_path",
     "launches",
     "launches_nibbles",
+    "variant",
+    "variant_launches",
     "KERNEL_SOURCE",
 ]
 
@@ -49,6 +53,11 @@ count_opcodes = nvcc.count_opcodes
 # (``graphs.count_launch``), not at its capture.
 launches = 0
 launches_nibbles = 0
+# the same launches by kernel variant (:func:`variant`)
+launches_by_variant: dict = {}
+# anchors the walks fetched while a profiler recorded (:func:`count_fetched`),
+# by variant: device scalars, read by :func:`fetched_anchors`
+_fetched: dict = {}
 
 _launch_fn = None
 _lib_lock = threading.Lock()
@@ -113,6 +122,40 @@ def kernel_resources(lib_path: Path | None = None):
     return nvcc.kernel_resources(library_path() if lib_path is None else lib_path)
 
 
+def variant(D: int, nibbles: bool = False) -> tuple[str, int, bool]:
+    """The kernel a launch of code rows ``D`` bytes wide takes: (layout
+    "u8" or "int4", lanes a code row, wide). Lanes cover the row's D/16
+    16-byte chunks, a power of two of at most 32; above 32 chunks (D > 512)
+    the "wide" kernel loops over a lane's chunks (``csrc/adjacency_dot.cu``:
+    ``adjacency_dot_<layout>_t<lanes>`` or ``adjacency_dot_<layout>_wide``)."""
+    chunks = D // 16
+    lanes = min(32, 1 << max(0, chunks - 1).bit_length())
+    return ("int4" if nibbles else "u8", lanes, chunks > 32)
+
+
+def variant_launches() -> dict:
+    """Kernel launches by :func:`variant` since import (a launch in a CUDA
+    graph once per replay); beside ``graphs.stats()``."""
+    with _count_lock:
+        return dict(launches_by_variant)
+
+
+def count_fetched(key: tuple, n: torch.Tensor) -> None:
+    """Add ``n`` (a device scalar: anchors >= 0 handed to the kernel) to the
+    anchors fetched at variant ``key``. The walks call it outside their steps
+    and only while a profiler records (``utils/spans.py:recording``), so
+    that a roofline can count the bytes the traced launches read."""
+    with _count_lock:
+        _fetched[key] = _fetched.get(key, 0) + n
+
+
+def fetched_anchors() -> dict:
+    """Anchors fetched by variant, counted by :func:`count_fetched` since
+    import (reads the device)."""
+    with _count_lock:
+        return {k: int(v) for k, v in _fetched.items()}
+
+
 def _check(qs, anchors, blocks):
     if not (qs.device == anchors.device == blocks.device):
         raise ValueError("qs, anchors and blocks must be on one device: "
@@ -171,12 +214,13 @@ def adjacency_dot(qs: torch.Tensor, anchors: torch.Tensor,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"adjacency_dot kernel launch failed: CUDA error {err}")
-    graphs.count_launch(_count, bool(nibbles))
+    graphs.count_launch(_count, bool(nibbles), variant(D, nibbles))
     return out
 
 
-def _count(nibbles: bool) -> None:
+def _count(nibbles: bool, key: tuple) -> None:
     global launches, launches_nibbles
     with _count_lock:
         launches += 1
         launches_nibbles += nibbles
+        launches_by_variant[key] = launches_by_variant.get(key, 0) + 1

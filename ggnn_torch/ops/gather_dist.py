@@ -53,6 +53,8 @@ __all__ = [
     "gather_dist_plain",
     "kernel_resources",
     "library_path",
+    "variant",
+    "variant_launches",
 ]
 
 KERNEL_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "gather_dist.cu"
@@ -61,6 +63,8 @@ KERNEL_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "gather_dist.cu"
 # ``_count_lock``; a launch captured into a CUDA graph counts once per replay
 # (``graphs.count_launch``)
 launches = 0
+# the same launches by kernel variant (:func:`variant`)
+launches_by_variant: dict = {}
 
 _launch_fn = None
 _lib_lock = threading.Lock()
@@ -144,10 +148,26 @@ def _load():
     return _launch_fn
 
 
-def _count() -> None:
+def variant(Q: int, D: int, u8: bool) -> tuple[int, int, bool]:
+    """The kernel instance a launch takes: (Q, NS, u8), ``NS`` the 128-wide
+    slabs of query values a lane keeps in registers -- 1 up to D = 128,
+    else 4, the rest of the row in passes (``csrc/gather_dist.cu``:
+    ``gather_dist_kernel<Q, NS, u8, vec>``)."""
+    return (int(Q), 1 if D <= 128 else 4, bool(u8))
+
+
+def variant_launches() -> dict:
+    """Kernel launches by :func:`variant` since import (a launch in a CUDA
+    graph once per replay); beside ``graphs.stats()``."""
+    with _count_lock:
+        return dict(launches_by_variant)
+
+
+def _count(key: tuple) -> None:
     global launches
     with _count_lock:
         launches += 1
+        launches_by_variant[key] = launches_by_variant.get(key, 0) + 1
 
 
 def _launch(qs, q_sq, ids, base, base_sq, translation, measure, with_ids):
@@ -190,7 +210,7 @@ def _launch(qs, q_sq, ids, base, base_sq, translation, measure, with_ids):
                  n_base, int(measure), stream)
     if err:
         raise RuntimeError(f"gather_dist kernel launch failed: CUDA error {err}")
-    graphs.count_launch(_count)
+    graphs.count_launch(_count, variant(Q, D, base.dtype == torch.uint8))
     return out_d, out_ids
 
 

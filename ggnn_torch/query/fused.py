@@ -49,7 +49,8 @@ import torch
 
 from ggnn_torch.config import DistanceMeasure, GraphConfig
 from ggnn_torch.graph import Graph
-from ggnn_torch.ops.adjacency import adjacency_dot
+from ggnn_torch.ops.adjacency import adjacency_dot, count_fetched
+from ggnn_torch.ops.adjacency import variant as adjacency_variant
 from ggnn_torch.ops.approx_topk import dist_approx_smallest_k
 from ggnn_torch.ops.beam import (
     BeamState,
@@ -64,7 +65,7 @@ from ggnn_torch.ops.distance import dist_block, finish, squared_norms
 from ggnn_torch.ops.gather_dist import gather_dist
 from ggnn_torch.ops.topk import smallest_k_positions, sort_by_dist
 from ggnn_torch.utils import graphs
-from ggnn_torch.utils.spans import span
+from ggnn_torch.utils.spans import recording, span
 
 __all__ = [
     "AdjacencyTables",
@@ -664,6 +665,14 @@ def _best_first_phases(state, q_vecs, q_sq, index, measure, *, steps: int,
     live_n = B if live_rows is None else live_rows
     live = torch.arange(B, device=dev) < live_n
     it = 0
+    # while a profiler records: the anchors the steps hand the adjacency
+    # kernel, as the entries each phase adds to the visited ring (one a
+    # pop; a full ring counts no more). Only where an anchor is a fetch of
+    # its own: a group's members share one.
+    tally = None
+    if recording() and getattr(index, "group", 1) == 1:
+        tally = adjacency_variant(index.blocks.shape[2],
+                                  index.blocks.shape[1] != index.cand_per_fetch)
     # per-row constants, selected with the rows at each compaction
     st, rows_c = state, (q_vecs, q_sq, _zero_dots(q_vecs, index))
     idx = torch.arange(B, device=dev)  # original row of each tile row
@@ -680,9 +689,13 @@ def _best_first_phases(state, q_vecs, q_sq, index, measure, *, steps: int,
             st = st.select(sel)
             rows_c = tuple(t[sel] for t in rows_c)
             live, idx = live[sel], idx[sel]
+        if tally is not None:
+            ring = torch.count_nonzero(st.vis != EMPTY_ID)
         st, live, it, live_n = graphs.run_steps(
             step, st, rows_c + scalars, live, it=it, steps=steps,
             live_n=live_n, floor=next_min, route=route, name=name, reads=reads)
+        if tally is not None:
+            count_fetched(tally, torch.count_nonzero(st.vis != EMPTY_ID) - ring)
         out_i[idx] = st.i[:, :k_out]
         if want_d:
             out_d[idx] = st.d[:, :k_out]

@@ -15,15 +15,21 @@ from contextlib import nullcontext
 import torch
 from torch.profiler import record_function
 
-__all__ = ["span"]
+__all__ = ["recording", "span"]
 
 _OFF = nullcontext()
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` records on this thread (not while it
+    only warms up)."""
+    return torch.autograd._profiler_enabled()
 
 
 def span(name: str, *args):
     """The profiler range ``name`` (``name % args`` where values are given,
     formatted only then) while a ``torch.profiler`` records on this thread;
     otherwise one shared context that does nothing."""
-    if not torch.autograd._profiler_enabled():
+    if not recording():
         return _OFF
     return record_function(name % args if args else name)

@@ -82,13 +82,43 @@ def test_plain_matches_pallas_interpret(P, nibbles):
     _assert_live_close(out, ref, anchors)
 
 
+@pytest.mark.parametrize("nibbles", [False, True])
+@pytest.mark.parametrize("D", [256, 960, 4096])
+def test_plain_matches_xla_wide_rows(D, nibbles):
+    """Code rows of 256 to 4,096 bytes: the wide kernel's rows (D > 512)
+    and the widest the reference allows, at the walks' 24 codes a block."""
+    import jax.numpy as jnp
+    from ggnn_tpu.ops.adjacency_pallas import adjacency_dot_xla
+
+    qs, anchors, blocks = _inputs(D, 16, 8, 24, D, 300, nibbles)
+    ref = np.asarray(adjacency_dot_xla(
+        jnp.asarray(qs), jnp.asarray(anchors), jnp.asarray(blocks), nibbles=nibbles
+    ))
+    out = _plain(qs, anchors, blocks, nibbles)
+    assert out.shape == ref.shape == (16, 8, 48 if nibbles else 24)
+    _assert_live_close(out, ref, anchors)
+
+
+@pytest.mark.parametrize("D,nibbles,want", [
+    (16, False, ("u8", 1, False)), (48, False, ("u8", 4, False)),
+    (128, False, ("u8", 8, False)), (512, True, ("int4", 32, False)),
+    (528, False, ("u8", 32, True)), (960, False, ("u8", 32, True)),
+    (4096, True, ("int4", 32, True))])
+def test_variant_is_the_launchs_kernel(D, nibbles, want):
+    """``variant`` names the kernel ``adjacency_dot_launch`` picks: lanes the
+    power of two covering D/16 chunks, at most 32; wide above 32 chunks."""
+    assert adjacency.variant(D, nibbles) == want
+
+
 def test_cpu_dispatch_takes_plain_route():
     qs, anchors, blocks = _inputs(3, 8, 4, 16, 64, 50, False)
     before = adjacency.launches
+    by_variant = adjacency.variant_launches()
     out = adjacency_dot(
         torch.from_numpy(qs), torch.from_numpy(anchors), torch.from_numpy(blocks)
     )
     assert adjacency.launches == before  # the kernel was not launched
+    assert adjacency.variant_launches() == by_variant
     np.testing.assert_array_equal(out.numpy(), _plain(qs, anchors, blocks, False))
 
 
@@ -290,3 +320,40 @@ def test_cuda_kernel_edges(cuda_device, CR, D, nibbles, P):
     assert out.shape == ref.shape == (33, P, 2 * CR if nibbles else CR)
     _assert_live_close(out.cpu().numpy(), ref.cpu().numpy(),
                        np.where(live, anchors, -1))
+
+
+# the fused walk's and the merges' launches at k_build 24, D = 960 (the
+# gist1m cell): a query tile's step (1,024 rows, 8 pops) and its compacted
+# phases, a merge chunk's step (8,192 rows) and a one-pop step
+WIDE_SHAPES = [(1024, 8), (512, 8), (8192, 8), (1024, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nibbles", [False, True])
+@pytest.mark.parametrize("B,P", WIDE_SHAPES)
+@pytest.mark.parametrize("D", [256, 960, 4096])
+def test_cuda_kernel_at_wide_rows(cuda_device, D, B, P, nibbles):
+    """Code rows of 256, 960 and 4,096 bytes (the wide kernel above 512) at
+    the walks' shapes, 24 codes a block (12 rows of int4 pairs), about a
+    tenth of the anchors -1: live lanes agree with the plain version, and
+    the launch counts under its variant. Rows are cut where the plain
+    version's gathered codes would pass 2 GiB (D = 4,096)."""
+    CR = 12 if nibbles else 24
+    B = min(B, (2 << 30) // (P * CR * D))
+    N = 4096
+    gen = torch.Generator(device=cuda_device).manual_seed(D + B + P)
+    qs = torch.randn((B, D), generator=gen, device=cuda_device)
+    anchors = torch.randint(0, N, (B, P), generator=gen, device=cuda_device,
+                            dtype=torch.int32)
+    anchors[torch.rand((B, P), generator=gen, device=cuda_device) < 0.1] = -1
+    blocks = torch.randint(0, 256, (N, CR, D), generator=gen, device=cuda_device,
+                           dtype=torch.uint8)
+    key = adjacency.variant(D, nibbles)
+    before = adjacency.variant_launches().get(key, 0)
+    out = adjacency_dot(qs, anchors, blocks, nibbles=nibbles)
+    torch.cuda.synchronize()
+    assert adjacency.variant_launches()[key] == before + 1
+    assert key[2] == (D > 512)
+    ref = adjacency_dot_plain(qs, anchors, blocks, nibbles=nibbles)
+    _assert_live_close(out.cpu().numpy(), ref.cpu().numpy(),
+                       anchors.cpu().numpy())

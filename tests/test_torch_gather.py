@@ -9,7 +9,8 @@ and the half-way point) and the fused query's exact re-rank
 (``ggnn_tpu/query/fused.py:782``, an expression inside a jitted function,
 written out here as it stands there). The cases cover an f32 and a uint8
 base, Euclidean and cosine, with and without a translation, -1 ids, K = 1,
-and D = 128 and 20 (not a multiple of 4: the kernel's scalar path).
+D = 128 and 20 (not a multiple of 4: the kernel's scalar path), and D =
+256, 960 and 4,096 (the kernel's passes of four 128-dim slabs).
 Tolerance: rtol 1e-5 -- XLA's and torch's CPU einsums sum the D products in
 their own orders. Base ids are compared exactly.
 
@@ -42,6 +43,11 @@ CASES = [
     ("u8", DistanceMeasure.Cosine, False, 20, 8),
     ("f32", DistanceMeasure.Euclidean, True, 20, 1),
     ("u8", DistanceMeasure.Cosine, True, 128, 1),
+    # rows wider than one 128-dim slab: the kernel's passes of 4 slabs
+    ("f32", DistanceMeasure.Euclidean, False, 256, 8),
+    ("u8", DistanceMeasure.Euclidean, True, 960, 8),
+    ("f32", DistanceMeasure.Euclidean, False, 960, 16),
+    ("f32", DistanceMeasure.Cosine, True, 4096, 8),
 ]
 
 
@@ -170,11 +176,12 @@ def test_cpu_route_is_the_plain_version_and_counts_nothing():
     launch is counted; -1 ids read row 0 (through the translation)."""
     qs, q_sq, ids, tr, base, base_sq = inputs("f32", True, 128, 8, Q=2)
     before = gd.launches
+    by_variant = gd.variant_launches()
     got = gd.gather_dist(_t(qs), _t(q_sq), _t(ids), _t(base), _t(base_sq),
                          _t(tr))
     want = gd.gather_dist_plain(_t(qs), _t(q_sq), _t(ids), _t(base),
                                 _t(base_sq), _t(tr))
-    assert gd.launches == before
+    assert gd.launches == before and gd.variant_launches() == by_variant
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert got[0].shape == (16, 2, 8)
     assert (got[1][torch.from_numpy(ids) == -1] == int(tr[0])).all()
@@ -229,6 +236,16 @@ def test_bad_shapes_and_other_device_raise():
     with pytest.raises(ValueError, match="unsupported device"):
         gd.gather_dist(_t(qs).to(meta), _t(q_sq).to(meta), _t(ids).to(meta),
                        _t(base).to(meta), _t(base_sq).to(meta))
+
+
+@pytest.mark.parametrize("Q,D,u8,want", [
+    (1, 20, False, (1, 1, False)), (2, 128, True, (2, 1, True)),
+    (1, 129, False, (1, 4, False)), (1, 960, False, (1, 4, False)),
+    (2, 4096, True, (2, 4, True))])
+def test_variant_is_the_launchs_instance(Q, D, u8, want):
+    """``variant`` names the instance ``dispatch_ns`` picks: one slab of
+    query values up to D = 128, else four a pass."""
+    assert gd.variant(Q, D, u8) == want
 
 
 def test_error_bound():
@@ -330,6 +347,44 @@ def test_cuda_kernel_at_the_walks_shapes(cuda_device, B, K, Q, translated):
           .to(torch.int32) if translated else None)
     for measure in DistanceMeasure:
         check_on_card(cuda_device, qs, q_sq, ids, base, base_sq, tr, measure)
+
+
+# the walks' shapes at k_build 24 and D = 960 (the gist1m cell): the fused
+# re-rank of a 1,024-row tile (16 candidates), a row step (8 pops x 24), the
+# f32 merge's step through a translation, the merges' own distance, the
+# descent's seed_beam and the sym walk's step (Q = 2)
+WIDE_SHAPES = [(1024, 16, 1, False), (1024, 192, 1, False),
+               (8192, 192, 1, True), (8192, 1, 1, False), (8192, 32, 1, True),
+               (32768, 192, 2, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,Q,translated", WIDE_SHAPES)
+@pytest.mark.parametrize("D", [256, 960, 4096])
+def test_cuda_kernel_at_wide_rows(cuda_device, D, B, K, Q, translated):
+    """Rows of 256, 960 and 4,096 dims (passes of four 128-dim slabs, the
+    last one partial at 960) at the walks' shapes over a 65,536-row base of
+    non-negative GIST-like values, ~10% of the ids -1, in both measures:
+    base ids equal, distances within ``error_bound``; each launch counts
+    under its variant. Rows are cut where the plain version's gathered rows
+    would pass 2 GiB."""
+    B = min(B, (2 << 30) // (K * D * 4))
+    gen = torch.Generator(device=cuda_device).manual_seed(D + B + K)
+    n = 65_536
+    base = torch.rand((n, D), generator=gen, device=cuda_device) * 0.5
+    base_sq = squared_norms(base)
+    qs = torch.rand((B, Q, D), generator=gen, device=cuda_device) * 0.5
+    q_sq = torch.sum(qs * qs, dim=-1)
+    ids = torch.randint(0, n // 2, (B, K), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    ids[torch.rand((B, K), generator=gen, device=cuda_device) < 0.1] = -1
+    tr = (torch.randperm(n, generator=gen, device=cuda_device)[: n // 2]
+          .to(torch.int32) if translated else None)
+    key = gd.variant(Q, D, False)
+    before = gd.variant_launches().get(key, 0)
+    for measure in DistanceMeasure:
+        check_on_card(cuda_device, qs, q_sq, ids, base, base_sq, tr, measure)
+    assert key[1] == 4 and gd.variant_launches()[key] == before + 4
 
 
 @pytest.mark.cuda
