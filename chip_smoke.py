@@ -85,6 +85,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    CUDA graph of launches, as in phase 3b), its host path's, the route's,
    ``torch.sort`` alone on the row's distances, the bytes bound and its
    share, the keys a lane and rows a block.
+3f. The beam ops' pop kernel (``csrc/beam_pop.cu``) against the plain
+   pop (``beam_pop_plain``) on the same state at ``BEAM_POP_SHAPES``: the
+   benchmark cells' fused query steps (gist1m's 1,024 x 32 with a ring of
+   3,200; sift1m's 8,192 x 32, ring 128), the row query's, the fused
+   merge's, the sym walk's (its own criterion and row mask) and k_query
+   6000's. Every output (anchors, active, the beam's bits, flags, ring,
+   head) must equal the plain pop's (0 differing entries) and the kernel
+   must return the state's own tensors; printed with the hits a row, the
+   kernel's device ms (a CUDA graph of one pop on each of 20 copies of
+   the state, restored before each replay, outside the timed replay), its
+   host path's, the plain pop's (a graph of launches, as in phase 3b), the
+   bytes bound (each row's beam read up to its P-th hit, the outputs
+   written once) and its share, and the kernel's registers and spills.
 4. Main path: ``GGNN(device="cuda")`` builds a 262,144-point graph
    (k_build=48, tau_build=0.5, 2 refinements) over the benchmark's
    synthetic SIFT-like data, derives the fused index, computes brute-force
@@ -263,7 +276,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    pre-gathered rows; the row call and the sym walk chunk on both gather
    routes; launches per path), ``beam_sort`` (phase 3e's numbers at every
    shape, the bytes bound, ``library_ms`` ``torch.sort`` alone; launches of
-   the kernel and of the torch.sort route per path), then the last line
+   the kernel and of the torch.sort route per path), ``beam_pop`` (phase
+   3f's numbers at every shape; launches of the kernel and the plain pops
+   on the card per path, which must be 0), then the last line
    ``{"ok": true,
    "device": {...}}``.
 
@@ -421,6 +436,19 @@ BEAM_SORT_SHAPES = [
     ("fused merge step", 8192, 64, 64, None),
     ("f32 merge and sym walk step", 8192, 64, 96, None),
     ("k_build 48 row step", 8192, 64, 288, None),
+]
+
+# the pop kernel's check shapes: (label, rows, beam W, pops P, k_best, ring
+# V, the sym walk's own criterion and row mask) -- the benchmark cells'
+# fused query steps at their tiles, the row query's, the build merges' and
+# the sym walk's at 8,192 rows (k_build 24), k_query 6000's fused step
+BEAM_POP_SHAPES = [
+    ("gist1m fused query step", 1024, 32, 16, 10, 3200, False),
+    ("sift1m fused query step", 8192, 32, 8, 10, 128, False),
+    ("row query step", 8192, 64, 8, 10, 192, False),
+    ("fused merge step", 8192, 64, 8, 25, 192, False),
+    ("sym walk step", 8192, 64, 8, 12, 64, True),
+    ("k_query 6000 fused step", 1024, 6048, 32, 6000, 32, False),
 ]
 
 
@@ -771,6 +799,154 @@ def check_beam_sort(device, shapes=BEAM_SORT_SHAPES):
                      for name, r in (res or {}).items()
                      if f"kernelILi{lanes}E" in name), "not available")
         out[label] = measure_beam_sort(device, label, B, W, K, cap, inst)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def beam_pop_inputs(device, B, W, V, k_best, sym, seed=0):
+    """A beam as a walk leaves it on ``device``: each row's finite
+    distances ascending in a prefix of 1/2 to all of W (+inf after), ids
+    distinct, the columns before ``k_best`` 80% expanded and the rest 20%,
+    a slack of 0.1 (about a tenth of the unexpanded entries past the
+    k_best-th distance pass); the ring half filled at a random head. With
+    ``sym`` the criterion (the best distance + the slack) and a row mask of
+    ~90%. Returns (state, criteria or None, row_mask or None)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=device)
+
+    col = torch.arange(W, device=device)[None, :]
+    fill = (W * (0.5 + 0.5 * rand(B, 1))).long()
+    hole = col >= fill
+    d = torch.where(hole, float("inf"), torch.sort(rand(B, W), dim=-1)[0])
+    i = torch.where(hole, -1, torch.argsort(rand(B, 4 * W), dim=-1)[:, :W]
+                    .to(torch.int32))
+    exp = (rand(B, W) < torch.where(col < k_best, 0.8, 0.2)) & ~hole
+    vis = torch.where(rand(B, V) < 0.5, torch.randint(
+        0, 1 << 24, (B, V), generator=g, device=device, dtype=torch.int32), -1)
+    head = torch.randint(0, V, (B,), generator=g, device=device,
+                         dtype=torch.int32)
+    xi = torch.full((B,), 0.1, device=device)
+    state = beam.BeamState(d, i, exp, vis, head, xi)
+    if not sym:
+        return state, None, None
+    return state, d[:, 0] + xi, rand(B) < 0.9
+
+
+def pop_graph_ms(pop, states, master, device, reps=10):
+    """Device ms per pop of ``pop`` (which updates its state in place): one
+    pop on each state of ``states`` captured into one CUDA graph (after a
+    warm-up pop on a copy, on a side stream), each replay timed between
+    CUDA events after every state is restored from ``master``."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        pop(beam.BeamState(*(t.clone() for t in master)))
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for st in states:
+            pop(st)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        for st in states:
+            for dst, src in zip(st, master):
+                dst.copy_(src)
+        torch.cuda.synchronize(device)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize(device)
+        total += start.elapsed_time(end)
+    del graph
+    return total / reps / len(states)
+
+
+def measure_beam_pop(device, label, B, W, P, k_best, V, sym, resources=None):
+    """The pop kernel (through ``beam_pop``) against the plain pop on the
+    same state at one shape: the entries that differ (must be 0); the
+    kernel's device ms (:func:`pop_graph_ms`) and its host path's, the
+    plain pop's device ms (:func:`replay_ms`), the bytes bound and its
+    share."""
+    master, crit, mask = beam_pop_inputs(device, B, W, V, k_best, sym)
+
+    def kernel(st):
+        return beam.beam_pop(st, P, k_best, mask, criteria=crit)
+
+    def plain():
+        return beam.beam_pop_plain(master, P, k_best, mask, criteria=crit)
+
+    want_a, want_act, want = plain()
+    st = beam.BeamState(*(t.clone() for t in master))
+    got_a, got_act, got = kernel(st)
+    _sync(device)
+    differ = int((got_a != want_a).sum()) + int((got_act != want_act).sum())
+    for a, b in zip(got, want):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        differ += int((a != b).sum())
+    # the kernel returns the state's own tensors (the CPU's plain route a
+    # new state)
+    in_place = device.type != "cuda" or all(a is b for a, b in zip(got, st))
+    if differ or not in_place:
+        raise AssertionError(f"beam pop ({label}) differs from the plain pop in "
+                             f"{differ} entries (in place: {in_place})")
+    cnt = (want_a != -1).sum(dim=-1)
+    # each row reads its beam (9 B a column) up to its P-th hit, or all of
+    # it short of P hits, and its vectors (head, slack or criterion, mask);
+    # it writes its anchors, active, head, and a ring slot and a flag a hit
+    # (a blanked hit 8 B more)
+    popped = want.exp & ~master.exp
+    col = torch.arange(W, device=device)[None, :]
+    last = torch.where(popped, col, -1).amax(dim=-1)
+    read_cols = torch.where(cnt < P, W, last + 1)
+    blanked = int((popped & (col >= k_best)).sum())
+    nbytes = (int(read_cols.sum()) * 9 + B * (4 + 4 + (1 if sym else 0))
+              + B * (P * 4 + 1 + 4) + int(cnt.sum()) * 5 + blanked * 8)
+    bound_ms = nbytes / HBM_BYTES_S * 1e3
+    states = [beam.BeamState(*(t.clone() for t in master))
+              for _ in range(DEDUP_LAUNCHES)] if device.type == "cuda" else None
+    if device.type == "cuda":
+        ms = pop_graph_ms(kernel, states, master, device)
+    else:
+        ms = time_ms(lambda: kernel(beam.BeamState(*(t.clone() for t in master))),
+                     device)[0]
+    del states
+    scratch = beam.BeamState(*(t.clone() for t in master))
+    host_ms, _ = time_ms(lambda: kernel(scratch), device)
+    plain_ms = replay_ms(plain, device)
+    timing = (f"device: a CUDA graph of {DEDUP_LAUNCHES} pops"
+              if device.type == "cuda" else "host clock, CPU")
+    print(f"beam pop {label} B={B} W={W} P={P} k_best={k_best} V={V}: hits a row "
+          f"{float(cnt.float().mean()):.2f}, columns read a row "
+          f"{float(read_cols.float().mean()):.1f} | differing entries {differ} | "
+          f"kernel {ms:.4f} ms ({timing}) | host path {host_ms:.4f} ms | plain "
+          f"pop {plain_ms:.4f} ms | bound {bound_ms:.5f} ms ({nbytes} B at 3.35 "
+          f"TB/s) | share of bound {bound_ms / ms:.3f} | resources "
+          f"{json.dumps(resources)}", flush=True)
+    return {"max_abs_err": 0, "differing": differ, "ms": ms, "host_ms": host_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_share": bound_ms / ms, "bytes": nbytes,
+            "hits": float(cnt.float().mean())}
+
+
+def check_beam_pop(device, shapes=BEAM_POP_SHAPES):
+    """Phase 3f: the pop kernel against the plain pop at each walk's
+    shape. Returns {label: numbers}."""
+    res = "not available"
+    if device.type == "cuda":
+        beam.build_kernel()  # 0.0 where phase 2 built it
+        found = beam.pop_kernel_resources()
+        res = next(({f: r[f] for f in ("REG", "SHARED", "LOCAL", "STACK") if f in r}
+                    for name, r in (found or {}).items()
+                    if "beam_pop_kernel" in name), res)
+    out = {}
+    for label, *shape in shapes:
+        out[label] = measure_beam_pop(device, label, *shape, resources=res)
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return out
@@ -1479,6 +1655,7 @@ def zero_launches():
     approx_topk.launches = 0
     gather_dist.launches = 0
     beam_sort.launches = beam_sort.launches_torch = 0
+    beam.pops_kernel = beam.pops_plain = 0
 
 
 def launches_now():
@@ -1486,7 +1663,8 @@ def launches_now():
     kernel's (and those in int4 mode), the dedup kernel's alone and fused
     with the compaction, the seeding's approximate top-k's, the walks'
     fused gather + distance's, the beam ops' sort kernel's and their
-    torch.sort route's."""
+    torch.sort route's, the pop kernel's and the plain pops on the card."""
+    pops = beam.pop_launches()
     return {"adjacency_dot": adjacency.launches,
             "adjacency_dot_nibbles": adjacency.launches_nibbles,
             "beam_dedup": beam.launches - beam.launches_compact,
@@ -1494,7 +1672,9 @@ def launches_now():
             "approx_topk": approx_topk.launches,
             "gather_dist": gather_dist.launches,
             "beam_sort": beam_sort.launches,
-            "beam_sort_torch": beam_sort.launches_torch}
+            "beam_sort_torch": beam_sort.launches_torch,
+            "beam_pop": pops["kernel"],
+            "beam_pop_plain": pops["plain"]}
 
 
 def _minus(a, b):
@@ -2624,8 +2804,9 @@ def run(device):
     resources = {}
     for label, m in (("adjacency_dot", adjacency), ("beam_dedup", beam),
                      ("approx_topk", approx_topk), ("gather_dist", gather_dist),
-                     ("beam_sort", beam_sort)):
-        res = m.kernel_resources()
+                     ("beam_sort", beam_sort), ("beam_pop", None)):
+        res = (beam.pop_kernel_resources() if m is None
+               else m.kernel_resources())
         resources[label] = "not available" if res is None else {
             k: {f: r[f] for f in ("REG", "SHARED", "LOCAL", "STACK", "I2F")
                 if f in r} for k, r in res.items()}
@@ -2648,6 +2829,8 @@ def run(device):
     t0 = _phase("gather + distance kernel vs plain", t0)
     sorts = check_beam_sort(device)
     t0 = _phase("beam sort kernel vs torch.sort route", t0)
+    pops = check_beam_pop(device)
+    t0 = _phase("beam pop kernel vs plain", t0)
 
     allocated = torch.cuda.memory_allocated(device)
     summary, ctx = main_path(device)
@@ -2890,6 +3073,28 @@ def run(device):
         "torch_route_per_path": per_path("beam_sort_torch"),
         "resources": resources["beam_sort"],
     })
+    # the beam ops' pop kernel, at its callers' shapes; the top-level
+    # numbers at gist1m's fused query step. No single PyTorch call computes
+    # the pop; the plain pop must never run on the card's paths
+    kernels.append({
+        "name": "beam_pop",
+        "route": "cuda",
+        "source": "ggnn_torch/csrc/beam_pop.cu",
+        # no Pallas kernel: the XLA fusion of beam_pop
+        "replaces": "ggnn_tpu/ops/beam.py:205",
+        "launches": sum(per_path("beam_pop").values()),
+        **numbers(pops["gist1m fused query step"], ("host_ms", "differing",
+                                                    "hits")),
+        "library_ms": None,
+        "shapes": {label: numbers(r, ("host_ms", "differing", "hits"))
+                   for label, r in pops.items()},
+        "launches_per_path": per_path("beam_pop"),
+        "plain_per_path": per_path("beam_pop_plain"),
+        "resources": resources["beam_pop"],
+    })
+    if any(per_path("beam_pop_plain").values()):
+        raise AssertionError(f"plain pops on the card: "
+                             f"{per_path('beam_pop_plain')}")
     # the card's line again beside the numbers, should the head of the log
     # be cut
     print(smi[0], flush=True)

@@ -39,7 +39,10 @@ The sorted merge of :func:`beam_insert` and the fused step's cap cut
 ``beam_sort.MAX_KEYS`` keys a row (``ops/beam_sort.py``,
 ``csrc/beam_sort.cu``); wider rows on the card take the ``torch.sort``
 route, which is the plain version (:func:`beam_insert_plain`,
-:func:`cap_candidates_plain`) that CPU tensors take.
+:func:`cap_candidates_plain`) that CPU tensors take. :func:`beam_pop` runs
+as a third kernel on CUDA tensors (``csrc/beam_pop.cu``), which updates
+the beam and the visited ring in place; CPU tensors take
+:func:`beam_pop_plain`, its oracle.
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ __all__ = [
     "beam_insert",
     "beam_insert_plain",
     "beam_pop",
+    "beam_pop_plain",
     "beam_transform",
     "cap_candidates",
     "cap_candidates_plain",
@@ -76,6 +80,7 @@ EMPTY_ID = -1
 EMPTY_DIST = float("inf")
 
 KERNEL_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "beam_dedup.cu"
+POP_SOURCE = KERNEL_SOURCE.with_name("beam_pop.cu")
 # shared memory a block may use on an H100 (227 KB, opted in above 48 KB):
 # one row's hash table of 2^14 slots at most (K <= 8192; <= 4096 where the
 # table is doubled for a long seen list)
@@ -91,8 +96,13 @@ SMEM_TARGET = 48 * 1024
 # (``graphs.count_launch``), as ``ops/adjacency.py`` counts its kernel
 launches = 0
 launches_compact = 0
+# pops of CUDA tensors: the pop kernel's launches, and the plain route's
+# pops (``beam_pop_plain`` called on the card); counted as the dedup's
+pops_kernel = 0
+pops_plain = 0
 
 _launch_fns = None
+_pop_fn = None
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
 
@@ -215,18 +225,29 @@ def library_path() -> Path:
     return nvcc.library_path("beam_dedup", KERNEL_SOURCE)
 
 
+def pop_library_path() -> Path:
+    """The pop kernel's shared library, named as :func:`library_path`."""
+    return nvcc.library_path("beam_pop", POP_SOURCE)
+
+
 def build_kernel() -> float:
-    """Compile the beam ops' kernel libraries, the dedup's and the sorted
-    merge's (``beam_sort.build_kernel``), unless the library of each source
-    and these flags exists. Returns the seconds the builds took (0.0 when
-    both were there)."""
-    return nvcc.build("beam_dedup", KERNEL_SOURCE) + beam_sort.build_kernel()
+    """Compile the beam ops' kernel libraries, the dedup's, the sorted
+    merge's (``beam_sort.build_kernel``) and the pop's, unless the library
+    of each source and these flags exists. Returns the seconds the builds
+    took (0.0 when all were there)."""
+    return (nvcc.build("beam_dedup", KERNEL_SOURCE) + beam_sort.build_kernel()
+            + nvcc.build("beam_pop", POP_SOURCE))
 
 
 def kernel_resources():
     """Registers, shared and local (spill) bytes of the built dedup
     kernels; None where ``cuobjdump`` is missing."""
     return nvcc.kernel_resources(library_path())
+
+
+def pop_kernel_resources():
+    """The same of the built pop kernel."""
+    return nvcc.kernel_resources(pop_library_path())
 
 
 def _bind(path: Path):
@@ -250,6 +271,20 @@ def _load():
             build_kernel()
             _launch_fns = _bind(library_path())
     return _launch_fns
+
+
+def _load_pop():
+    """The C entry point ``beam_pop_launch`` of the built pop library."""
+    global _pop_fn
+    with _lib_lock:
+        if _pop_fn is None:
+            build_kernel()
+            fn = ctypes.CDLL(str(pop_library_path())).beam_pop_launch
+            ptr, ld, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+            fn.argtypes = [ptr, ld] * 4 + [ptr] * 6 + [i32] * 5 + [ptr]
+            fn.restype = ctypes.c_int
+            _pop_fn = fn
+    return _pop_fn
 
 
 def table_slots(K: int, W: int, V: int) -> int:
@@ -283,10 +318,10 @@ def register_chunks(K: int) -> int:
     return 1 if K <= 32 else 3 if K <= 96 else 12
 
 
-def _rows(t: torch.Tensor, name: str) -> int:
+def _rows(t: torch.Tensor, name: str, what: str = "beam dedup kernel") -> int:
     """The row stride of a [B, n] tensor whose rows are contiguous."""
     if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1):
-        raise ValueError(f"beam dedup kernel: {name} must be [B, n] with "
+        raise ValueError(f"{what}: {name} must be [B, n] with "
                          f"contiguous rows, got shape {tuple(t.shape)} "
                          f"strides {t.stride()}")
     return t.stride(0)
@@ -519,11 +554,39 @@ def beam_pop(
     prefix stays -- it is the reference's best-list copy. The blanked tail is
     re-sorted by the next insert.
 
+    CPU tensors take :func:`beam_pop_plain`. CUDA tensors launch the
+    kernel (``csrc/beam_pop.cu``), which needs f32 distances, int32 ids,
+    bool flags, rows with contiguous elements and a contiguous ``vis_head``,
+    and writes ``d``, ``i``, ``exp``, ``vis`` and ``vis_head`` IN PLACE:
+    the new state holds the same tensors, and the state before the pop is
+    gone (every walk reads only the state after it). Another device raises.
+
     Returns: (anchors [B, P] i32 with EMPTY padding, active [B] bool,
     new_state).
     """
+    dev = state.d.device
+    if dev.type == "cpu":
+        return beam_pop_plain(state, P, k_best, row_mask, criteria=criteria)
+    if dev.type != "cuda":
+        raise ValueError(f"beam_pop: unsupported device {dev}")
+    return _pop_launch(state, P, k_best, row_mask, criteria)
+
+
+def beam_pop_plain(
+    state: BeamState,
+    P: int,
+    k_best: int,
+    row_mask: torch.Tensor | None = None,
+    *,
+    criteria: torch.Tensor | None = None,
+):
+    """:func:`beam_pop` out of place in plain PyTorch: the CPU's route and
+    the kernel's oracle. A pop of CUDA tensors counts in
+    :func:`pop_launches`."""
     B, W = state.d.shape
     dev = state.d.device
+    if dev.type == "cuda":
+        graphs.count_launch(_count_pop, False)
     crit = state.criteria(k_best) if criteria is None else criteria
     mask = ~state.exp & (state.i != EMPTY_ID) & (state.d < crit[:, None])
     if row_mask is not None:
@@ -565,6 +628,78 @@ def beam_pop(
     return anchors, torch.any(valid, dim=-1), state._replace(
         d=d, i=i, exp=exp, vis=vis, vis_head=vis_head
     )
+
+
+def _pop_launch(state: BeamState, P: int, k_best: int, row_mask, criteria):
+    """The pop kernel on CUDA tensors: anchors and active are new, the
+    state's tensors are updated in place."""
+    what = "beam pop kernel"
+    B, W = state.d.shape
+    if criteria is None and not 1 <= k_best <= W:
+        raise ValueError(f"{what}: k_best {k_best} outside 1..{W}")
+    if P < 0:
+        raise ValueError(f"{what}: P = {P}")
+    rows = [(state.d, "distances", torch.float32), (state.i, "ids", torch.int32),
+            (state.exp, "flags", torch.bool), (state.vis, "ring", torch.int32)]
+    vectors = [(state.vis_head, "vis_head", torch.int32),
+               (state.xi, "xi", torch.float32) if criteria is None
+               else (criteria, "criteria", torch.float32)]
+    if row_mask is not None:
+        vectors.append((row_mask, "row_mask", torch.bool))
+    dev = state.d.device
+    for t, name, dtype in rows + vectors:
+        if t.dtype != dtype:
+            raise ValueError(f"{what}: {name} must be {dtype}, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{what}: {name} on {t.device}, the beam on {dev}")
+    ld = [_rows(t, name, what) for t, name, _ in rows]
+    V = state.vis.shape[1]
+    if (any(t.shape[0] != B for t, _, _ in rows) or V < 1
+            or any(t.shape[1] != W for t, _, _ in rows[:3])
+            or any(tuple(t.shape) != (B,) for t, _, _ in vectors)):
+        raise ValueError(f"{what}: a beam of {B} x {W} with "
+                         + ", ".join(f"{name} {tuple(t.shape)}"
+                                     for t, name, _ in rows[1:] + vectors))
+    if B > 1 and state.vis_head.stride(0) != 1:
+        raise ValueError(f"{what}: vis_head must be contiguous, it is "
+                         "written in place")
+    anchors = torch.empty((B, P), dtype=torch.int32, device=dev)
+    active = torch.empty((B,), dtype=torch.bool, device=dev)
+    if B == 0:
+        return anchors, active, state
+    crit = vectors[1][0].contiguous()
+    mask = None if row_mask is None else row_mask.contiguous()
+    fn = _load_pop()
+    with torch.cuda.device(dev):
+        err = fn(state.d.data_ptr(), ld[0], state.i.data_ptr(), ld[1],
+                 state.exp.data_ptr(), ld[2], state.vis.data_ptr(), ld[3],
+                 state.vis_head.data_ptr(),
+                 crit.data_ptr() if criteria is None else None,
+                 None if criteria is None else crit.data_ptr(),
+                 None if mask is None else mask.data_ptr(),
+                 anchors.data_ptr(), active.data_ptr(), B, W, P, V, k_best,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"beam pop kernel launch failed: CUDA error {err}")
+    graphs.count_launch(_count_pop, True)
+    return anchors, active, state
+
+
+def _count_pop(kernel: bool) -> None:
+    global pops_kernel, pops_plain
+    with _count_lock:
+        if kernel:
+            pops_kernel += 1
+        else:
+            pops_plain += 1
+
+
+def pop_launches() -> dict:
+    """Pops of CUDA tensors so far: ``kernel``, the pop kernel's launches,
+    and ``plain``, the plain route's pops on the card (0 on every walk's
+    path); a pop captured into a CUDA graph counts once per replay."""
+    with _count_lock:
+        return {"kernel": pops_kernel, "plain": pops_plain}
 
 
 def beam_transform(state: BeamState, mapping: torch.Tensor,
