@@ -24,6 +24,7 @@ import torch
 import chip_smoke
 from ggnn_torch.ops import adjacency
 from ggnn_torch.ops.adjacency import adjacency_dot, adjacency_dot_plain
+from torch_reference import one_torch_thread  # noqa: F401
 
 
 def _inputs(seed, B, P, CR, D, N, nibbles):

@@ -31,6 +31,7 @@ from ggnn_torch.ops.approx_topk import (
     reduction_size,
 )
 from ggnn_torch.ops.distance import finish, squared_norms
+from torch_reference import one_torch_thread  # noqa: F401
 
 # (n representatives, k seeds) of the seeding at 1,000,000 points: the
 # benchmark's num_seeds, the query default, the build merge's

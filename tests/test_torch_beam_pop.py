@@ -25,6 +25,7 @@ import torch
 
 from ggnn_torch.ops import beam
 from ggnn_torch.ops.beam import BeamState, beam_pop, beam_pop_plain
+from torch_reference import one_torch_thread  # noqa: F401
 
 # (W beam, P pops a step, k_best, V ring, criteria given) of each walk, as
 # ggnn_torch/config.py and the benchmark's operating points size them

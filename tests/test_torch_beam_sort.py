@@ -30,6 +30,7 @@ from ggnn_torch.ops.beam import (
     cap_candidates_plain,
 )
 from ggnn_torch.utils import graphs
+from torch_reference import one_torch_thread  # noqa: F401
 
 # (W beam columns, K candidates, kept columns: None for an insert, else
 # the cut's cap) of every walk at the benchmark's k_build 24, P 8, and of

@@ -21,20 +21,11 @@ import torch
 import bench_torch as bt
 import ggnn_tpu
 from ggnn_torch import GGNN
+from torch_reference import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 N, NQ, KB = 2048, 512, 24
 SWEEP = bt.SWEEP[:2]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _few_torch_threads():
-    """Small shapes gain little from many intra-op threads beside other test
-    processes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _bench_py():

@@ -34,6 +34,7 @@ from ggnn_torch.build.top_merge import top_merge_layer
 from ggnn_torch.config import DistanceMeasure, GraphConfig
 from ggnn_torch.ops.distance import squared_norms
 from ggnn_torch.query.fused import encode_u8, make_adjacency, quantizer_for
+from torch_reference import one_torch_thread  # noqa: F401
 
 N, D, K = 2048, 64, 16
 TAU = 0.5

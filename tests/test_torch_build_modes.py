@@ -20,6 +20,7 @@ from ggnn_tpu.build.construction import _BuildContext as JBuildContext
 from ggnn_tpu.config import GraphConfig as JGraphConfig
 from ggnn_torch import GGNN, DistanceMeasure, Evaluator, GraphConfig
 from ggnn_torch.build.construction import _BuildContext, quantized_fetch_fits
+from torch_reference import make_dataset, one_torch_thread  # noqa: F401
 
 N, NQ, D, K = 4096, 1000, 64, 16
 # (tau_query, pop budget): a mid and an easy point of the row engine
@@ -30,22 +31,9 @@ MODES = {
 }
 
 
-def _make_dataset(n, nq, d, d_latent=12, seed=0):
-    """SIFT-like synthetic vectors (the benchmark's generator, scaled down)."""
-    rng = np.random.default_rng(seed)
-    w = rng.normal(size=(d_latent, d)).astype(np.float32) / np.sqrt(d_latent)
-
-    def sample(m):
-        z = rng.normal(size=(m, d_latent)).astype(np.float32)
-        x = z @ w * 40.0 + 128.0 + rng.normal(0, 4, size=(m, d)).astype(np.float32)
-        return np.clip(x, 0, 255).astype(np.float32)
-
-    return sample(n), sample(nq)
-
-
 @pytest.fixture(scope="module")
 def data():
-    return _make_dataset(N, NQ, D)
+    return make_dataset(N, NQ, D)
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))

@@ -33,6 +33,7 @@ from ggnn_torch import GGNN, Evaluator
 from ggnn_torch.ops import adjacency
 from ggnn_torch.query.ann import ann_query
 from ggnn_torch.query.fused import FusedIndex, build_fused_index, fused_query
+from torch_reference import one_torch_thread  # noqa: F401
 
 N, NQ, D, K = 4096, 1000, 128, 24
 

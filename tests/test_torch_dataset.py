@@ -7,27 +7,17 @@ ggnn_torch.benchmark --device cpu`` builds, stores, reloads and prints c@1
 
 import numpy as np
 import pytest
-import torch
 
 from ggnn_tpu import dataset as jds
 from ggnn_torch import dataset as tds
 from ggnn_torch.benchmark import build_parser, main
+from torch_reference import one_torch_thread  # noqa: F401
 
 CASES = {
     ".fvecs": lambda rng: rng.random((37, 12), dtype=np.float32),
     ".bvecs": lambda rng: rng.integers(0, 256, (37, 12)).astype(np.uint8),
     ".ivecs": lambda rng: rng.integers(-5, 10**6, (37, 12)).astype(np.int32),
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """Tiny shapes gain nothing from intra-op threads, and beside other test
-    processes their spinning costs many times the work."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("ext", sorted(CASES))

@@ -30,6 +30,7 @@ from ggnn_torch.ops.beam import (
     beam_dedup_mask,
     beam_dedup_mask_plain,
 )
+from torch_reference import one_torch_thread  # noqa: F401
 
 # (caller, K candidates, W beam, V ring), cut to a few rows below; k=48,
 # P=8 as ggnn_torch/config.py gives them

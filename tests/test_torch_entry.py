@@ -26,18 +26,9 @@ import ggnn_tpu.graph
 from ggnn_torch.convert import fused_index_from_numpy, graph_from_numpy
 from ggnn_torch.entry import dryrun_multichip, entry
 from ggnn_tpu.config import GraphConfig as JGraphConfig
+from torch_reference import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """Tiny shapes gain nothing from intra-op threads, and beside other test
-    processes their spinning costs many times the work."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -15,18 +15,11 @@ import pytest
 import torch
 
 from ggnn_torch import store_fvecs, store_ivecs
+from torch_reference import one_torch_thread  # noqa: F401
 
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples" / "torch_port"
 TINY = ["--n", "1024", "--nq", "50", "--dim", "16", "--k_build", "12",
         "--device", "cpu"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _run(name, argv, monkeypatch):

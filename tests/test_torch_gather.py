@@ -31,6 +31,7 @@ from ggnn_torch.config import DistanceMeasure
 from ggnn_torch.ops import gather_dist as gd
 from ggnn_torch.ops.distance import squared_norms
 from ggnn_torch.ops.traverse import gather_dists
+from torch_reference import one_torch_thread  # noqa: F401
 
 RTOL = 1e-5
 N = 300

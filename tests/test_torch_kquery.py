@@ -18,10 +18,10 @@ neighbours), so the budget fills the beam.
 
 import numpy as np
 import pytest
-import torch
 
 import ggnn_tpu
 from ggnn_torch import GGNN, GraphConfig
+from torch_reference import one_torch_thread  # noqa: F401
 
 N, D, K, NQ, KQ = 8192, 8, 12, 4, 6000
 BUDGET = 5000
@@ -30,24 +30,19 @@ FKW = dict(pops_per_iter=32, cap=32 * K)
 
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        rng = np.random.default_rng(0)
-        base = rng.normal(size=(N, D)).astype(np.float32)
-        query = rng.normal(size=(NQ, D)).astype(np.float32)
-        d = tmp_path_factory.mktemp("kquery")
-        g = GGNN(device="cpu")
-        g.set_base(base)
-        g.set_working_directory(d)
-        g.build(k_build=K, tau_build=0.5, refinement_iterations=0)
-        g.build_fused_index()
-        g.store()
-        fused = g.query(query, KQ, 1.0, BUDGET, engine="fused",
-                        seed_approx=False, **FKW)
-        row = g.query(query, KQ, 1.0, BUDGET)
-    finally:
-        torch.set_num_threads(n)
+    rng = np.random.default_rng(0)
+    base = rng.normal(size=(N, D)).astype(np.float32)
+    query = rng.normal(size=(NQ, D)).astype(np.float32)
+    d = tmp_path_factory.mktemp("kquery")
+    g = GGNN(device="cpu")
+    g.set_base(base)
+    g.set_working_directory(d)
+    g.build(k_build=K, tau_build=0.5, refinement_iterations=0)
+    g.build_fused_index()
+    g.store()
+    fused = g.query(query, KQ, 1.0, BUDGET, engine="fused",
+                    seed_approx=False, **FKW)
+    row = g.query(query, KQ, 1.0, BUDGET)
     dist = ((query[:, None] - base[None]) ** 2).sum(-1)
     want = np.argsort(dist, axis=1)[:, :KQ]
     return base, query, d, g, fused, row, want

@@ -20,12 +20,12 @@ import numpy as np
 import pytest
 import torch
 
-import ggnn_tpu
 from ggnn_tpu.config import DistanceMeasure as JMeasure
 from ggnn_tpu.query import fused as jfused
 from ggnn_torch import DistanceMeasure, Evaluator
 from ggnn_torch.convert import fused_index_from_numpy, graph_from_numpy
 from ggnn_torch.query import fused as tfused
+from torch_reference import make_dataset, one_torch_thread, reference  # noqa: F401
 
 N, NQ, D, K = 4096, 1000, 64, 16
 LAYOUTS = [(2, 8), (4, 8), (1, 4), (2, 4)]
@@ -33,35 +33,10 @@ QKW = dict(num_seeds=8, rerank=16, width=32, cap=32)
 TAU, ITERS, P = 0.64, 32, 4
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """Tiny shapes gain nothing from intra-op threads, and beside other test
-    processes their spinning costs many times the work."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def _make_dataset(n, nq, d, d_latent=12, seed=0):
-    """SIFT-like synthetic vectors (the benchmark's generator, scaled down)."""
-    rng = np.random.default_rng(seed)
-    w = rng.normal(size=(d_latent, d)).astype(np.float32) / np.sqrt(d_latent)
-
-    def sample(m):
-        z = rng.normal(size=(m, d_latent)).astype(np.float32)
-        x = z @ w * 40.0 + 128.0 + rng.normal(0, 4, size=(m, d)).astype(np.float32)
-        return np.clip(x, 0, 255).astype(np.float32)
-
-    return sample(n), sample(nq)
-
-
 @pytest.fixture(scope="module")
-def ref():
-    base, query = _make_dataset(N, NQ, D)
-    jg = ggnn_tpu.GGNN()
-    jg.set_base(base)
-    jg.build(k_build=K, tau_build=0.5, refinement_iterations=2)
+def ref(tmp_path_factory, worker_id):
+    base, query = make_dataset(N, NQ, D)
+    jg = reference(tmp_path_factory, worker_id, N, D, K)
     gt, _ = jg.bf_query(query, k_gt=100)
     shard = jg._shards[0]
     return {"base": base, "query": query, "gt": np.asarray(gt), "cfg": jg._cfg,
@@ -213,3 +188,23 @@ def test_sidecars_cross_load(ref, tmp_path, group, bits):
                            + tuple(graph.neighbors[1:]))
     assert not tfused.fused_index_matches_graph(meta, other, K)
     assert not tfused.fused_index_matches_graph(mine, other, K)
+
+
+def test_reference_is_built_once(tmp_path_factory, worker_id):
+    """Two calls of ``reference`` in one run: only the first builds (only it
+    has build stats), and the second loads a graph equal array for array."""
+    built = reference(tmp_path_factory, worker_id, n=256, d=8, k_build=8)
+    loaded = reference(tmp_path_factory, worker_id, n=256, d=8, k_build=8)
+    assert built.last_build_stats is not None and loaded.last_build_stats is None
+    a, b = built._shards[0].graph, loaded._shards[0].graph
+    for name in a._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if not isinstance(x, tuple):
+            x, y = (x,), (y,)
+        assert len(x) == len(y), name
+        for u, v in zip(x, y):
+            u, v = np.asarray(u), np.asarray(v)
+            assert u.dtype == v.dtype, name
+            np.testing.assert_array_equal(v, u, err_msg=name)
+    np.testing.assert_array_equal(np.asarray(loaded._shards[0].base_sq),
+                                  np.asarray(built._shards[0].base_sq))

@@ -22,6 +22,7 @@ from ggnn_torch.config import GraphConfig
 from ggnn_torch.graph import empty_graph
 from ggnn_tpu.config import GraphConfig as JGraphConfig
 from ggnn_tpu.graph import empty_graph as j_empty_graph
+from torch_reference import one_torch_thread  # noqa: F401
 
 # module renamed in the port: the Pallas kernel's module became the CUDA
 # kernel's wrapper

@@ -30,6 +30,7 @@ from ggnn_torch.ops import adjacency
 from ggnn_torch.parallel import merge_over_devices
 from ggnn_tpu.native import io as j_native_io
 from ggnn_tpu.native import merge as j_native_merge
+from torch_reference import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

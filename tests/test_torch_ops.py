@@ -23,6 +23,7 @@ from ggnn_torch.ops import beam as tbeam
 from ggnn_torch.ops.bruteforce import bruteforce_knn
 from ggnn_torch.ops.distance import dist_block, dist_gathered, squared_norms
 from ggnn_torch.ops.topk import smallest_k_positions
+from torch_reference import one_torch_thread  # noqa: F401
 
 MEASURES = [DistanceMeasure.Euclidean, DistanceMeasure.Cosine]
 

@@ -33,17 +33,10 @@ from ggnn_tpu.parallel import sharded_bf_query as j_sharded_bf_query
 from ggnn_tpu.parallel import sharded_fused_query as j_sharded_fused_query
 from ggnn_tpu.parallel import sharded_query as j_sharded_query
 from ggnn_tpu.query.fused import build_fused_index as j_build_fused_index
+from torch_reference import one_torch_thread  # noqa: F401
 
 N_SHARD, D, KB, NQ, K = 512, 16, 12, 200, 10
 TAU, ITERS, P = 0.7, 64, 8
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -2,9 +2,10 @@
 loop, the row engine, the hierarchic-descent merge and the walking sym
 modes.
 
-One module fixture builds one JAX graph (the JAX package's default schedule)
-and brute-force ground truth; every port function here is fed that graph
-and the same numpy inputs as its JAX counterpart.
+One module fixture takes the JAX package's default graph
+(``torch_reference.reference``, built once per run) and brute-force ground
+truth; every port function here is fed that graph and the same numpy inputs
+as its JAX counterpart.
 
 Tolerances: ids are compared exactly where the code is deterministic (beam
 compaction, the descent remap). Where f32 distances are compared against
@@ -20,7 +21,6 @@ import numpy as np
 import pytest
 import torch
 
-import ggnn_tpu
 from ggnn_tpu.build import sym as jsym
 from ggnn_tpu.build.merge import merge_layer as j_merge_layer
 from ggnn_tpu.config import DistanceMeasure as JMeasure
@@ -39,23 +39,11 @@ from ggnn_torch.ops.distance import squared_norms
 from ggnn_torch.ops.traverse import best_first_search
 from ggnn_torch.query.ann import _dynamic_xi, ann_query
 from ggnn_torch.query.fused import encode_u8, make_adjacency, quantizer_for
+from torch_reference import make_dataset, one_torch_thread, reference  # noqa: F401
 
 N, NQ, D, K = 4096, 2048, 64, 16
 TAU_BUILD = 0.5
 E = DistanceMeasure.Euclidean
-
-
-def _make_dataset(n, nq, d, d_latent=12, seed=0):
-    """SIFT-like synthetic vectors (the benchmark's generator, scaled down)."""
-    rng = np.random.default_rng(seed)
-    w = rng.normal(size=(d_latent, d)).astype(np.float32) / np.sqrt(d_latent)
-
-    def sample(m):
-        z = rng.normal(size=(m, d_latent)).astype(np.float32)
-        x = z @ w * 40.0 + 128.0 + rng.normal(0, 4, size=(m, d)).astype(np.float32)
-        return np.clip(x, 0, 255).astype(np.float32)
-
-    return sample(n), sample(nq)
 
 
 def _t(x):
@@ -71,11 +59,9 @@ def _overlap(a, b):
 
 
 @pytest.fixture(scope="module")
-def ref():
-    base, query = _make_dataset(N, NQ, D)
-    jg = ggnn_tpu.GGNN()
-    jg.set_base(base)
-    jg.build(k_build=K, tau_build=TAU_BUILD, refinement_iterations=2)
+def ref(tmp_path_factory, worker_id):
+    base, query = make_dataset(N, NQ, D)
+    jg = reference(tmp_path_factory, worker_id, N, D, K)
     gt, _ = jg.bf_query(query, k_gt=100)
     shard = jg._shards[0]
     return {

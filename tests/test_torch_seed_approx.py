@@ -24,21 +24,12 @@ from ggnn_torch.ops import approx_topk
 from ggnn_torch.ops.approx_topk import reduction_size
 from ggnn_torch.parallel import sharded
 from ggnn_torch.query import fused
+from torch_reference import one_torch_thread  # noqa: F401
 
 N, D, KB, NQ = 4096, 32, 12, 300
 # a budget at which c@1 is ~0.83, not saturated
 TAU, ITERS = 0.6, 32
 QKW = dict(engine="fused", num_seeds=8, rerank=16, width=32, cap=32)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """Tiny shapes gain nothing from intra-op threads, and beside other test
-    processes their spinning costs many times the work."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -27,20 +27,11 @@ import torch
 
 import ggnn_tpu
 from ggnn_torch import GGNN
+from torch_reference import one_torch_thread  # noqa: F401
 
 N_SHARD, D, KB = 512, 16, 12
 NQ = 200
 TAU, ITERS = 0.7, 64
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """Tiny shapes gain nothing from intra-op threads, and beside other test
-    processes their spinning costs many times the work."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -5,22 +5,12 @@ versions of the JAX package's persistence tests
 
 import numpy as np
 import pytest
-import torch
 
 from ggnn_torch import GGNN
 from ggnn_torch.query.fused import fused_index_matches_graph, load_fused_index
+from torch_reference import one_torch_thread  # noqa: F401
 
 N, D, KB = 512, 16, 12
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """Tiny shapes gain nothing from intra-op threads, and beside other test
-    processes their spinning costs many times the work."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -33,6 +33,7 @@ from ggnn_torch.query.fused import (
     fused_best_first_compacted,
     fused_query,
 )
+from torch_reference import make_dataset, one_torch_thread, reference  # noqa: F401
 
 N, NQ, D, K = 4096, 1000, 64, 16
 QKW = dict(num_seeds=8, rerank=16, width=32, cap=32)
@@ -46,25 +47,10 @@ POINTS = [(0.5, 12, 4), (0.64, 32, 4)]
 E2E_POINTS = [(0.5, 20, 4), (0.64, 24, 4)]
 
 
-def _make_dataset(n, nq, d, d_latent=12, seed=0):
-    """SIFT-like synthetic vectors (the benchmark's generator, scaled down)."""
-    rng = np.random.default_rng(seed)
-    w = rng.normal(size=(d_latent, d)).astype(np.float32) / np.sqrt(d_latent)
-
-    def sample(m):
-        z = rng.normal(size=(m, d_latent)).astype(np.float32)
-        x = z @ w * 40.0 + 128.0 + rng.normal(0, 4, size=(m, d)).astype(np.float32)
-        return np.clip(x, 0, 255).astype(np.float32)
-
-    return sample(n), sample(nq)
-
-
 @pytest.fixture(scope="module")
-def data():
-    base, query = _make_dataset(N, NQ, D)
-    jg = ggnn_tpu.GGNN()
-    jg.set_base(base)
-    jg.build(k_build=K, tau_build=0.5, refinement_iterations=2)
+def data(tmp_path_factory, worker_id):
+    base, query = make_dataset(N, NQ, D)
+    jg = reference(tmp_path_factory, worker_id, N, D, K)
     jg.build_fused_index()
     gt, _ = jg.bf_query(query, k_gt=100)
     return base, query, np.asarray(gt), jg

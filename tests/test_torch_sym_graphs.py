@@ -49,22 +49,13 @@ from ggnn_torch.build import sym as tsym
 from ggnn_torch.config import DistanceMeasure, GraphConfig, SYM_MAX_PER_PATH_ITERATIONS
 from ggnn_torch.ops.distance import squared_norms
 from ggnn_torch.utils import graphs
+from torch_reference import one_torch_thread  # noqa: F401
 
 N, D, K = 2048, 32, 16
 TAU = 0.5
 E = DistanceMeasure.Euclidean
 CHUNK_NODES = 128  # several walk chunks at this size
 HUB = 256
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """Tiny shapes gain nothing from intra-op threads, and beside other test
-    processes their spinning costs many times the work."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(x):

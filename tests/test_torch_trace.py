@@ -38,18 +38,11 @@ from ggnn_torch import GGNN
 from ggnn_torch.query.ann import ann_query
 from ggnn_torch.query.fused import fused_query, tile_plan
 from ggnn_torch.utils import graphs, timing
+from torch_reference import one_torch_thread  # noqa: F401
 
 N, NQ, D, K = 1024, 300, 16, 12
 CHUNK = 128
 PROGRAM = ("ggnn.", "tile[", "seed", "walk", "rerank", "graphs.", "build.")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _data(n, nq, d, seed=0):

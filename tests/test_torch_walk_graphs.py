@@ -67,20 +67,11 @@ from ggnn_torch.query.fused import (
     quantizer_for,
 )
 from ggnn_torch.utils import graphs
+from torch_reference import one_torch_thread  # noqa: F401
 
 N, NQ, D, K = 1024, 600, 32, 12
 E, C = DistanceMeasure.Euclidean, DistanceMeasure.Cosine
 MEASURES = [E, C]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """Tiny shapes gain nothing from intra-op threads, and beside other test
-    processes their spinning costs many times the work."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _data(n, nq, d, seed=0):

@@ -14,6 +14,7 @@ from pathlib import Path
 import pytest
 
 from ggnn_torch.utils import cache
+from torch_reference import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 SOURCES = {"ggnn_torch/csrc/adjacency_dot.cu",

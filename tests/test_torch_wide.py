@@ -40,6 +40,7 @@ from annbench import data, reference
 from ggnn_torch import GGNN
 from ggnn_torch.ops import adjacency, gather_dist
 from ggnn_torch.query import fused
+from torch_reference import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG = json.loads((ROOT / "annbench" / "configs" / "gist1m.json").read_text())
@@ -50,8 +51,6 @@ CPU_BUILD = dict(k_build=12, tau_build=CFG["tau_build"], refinement_iterations=0
 @pytest.fixture(scope="module")
 def built():
     torch.manual_seed(0)
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 4))
     base, pool = data.generate(CFG["data"], N, CFG["dim"], NQ, SEED, "cpu")
     g = GGNN(device="cpu")
     g.set_base(base.numpy())
@@ -59,7 +58,6 @@ def built():
     g.build_fused_index(group=CFG["group"], bits=CFG["bits"])
     yield g, base, pool
     g.close()
-    torch.set_num_threads(n)
 
 
 def _query(g, pool):
