@@ -28,15 +28,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    the quantized merge's steps) and ``beam_dedup_compact`` (the row query's,
    the f32 merge's and the sym walk's steps) against their plain versions
    at each step's shape (``DEDUP_SHAPES``: B=8192 rows, k_build=48, P=8;
-   and k_query 6000's 1,000 rows with a beam of 6,048 and a ring of 2,144):
+   k_query 6000's 1,000 rows with a beam of 6,048 and a ring of 2,144; the
+   3,200-pop fused walk's 1,024, 512 and 256 rows with a ring of 3,200,
+   which take the split narrow row):
    about half the candidates repeat another column or are already seen,
    ~10% are -1. Every entry of ``ok`` and ``packed`` must equal the plain
    version's (0 differing). The kernel's device time is read from a CUDA
    graph of ``DEDUP_LAUNCHES`` captured launches, replayed between CUDA
    events (as the walks run it: no host path per launch); beside it the
    host path's ms (CUDA events around Python calls of the wrapper), the
-   plain version's ms, the bytes bound, the rows (warps) per block, the
-   shared bytes per block and the kernel's registers and spills.
+   plain version's ms, the bytes bound, the row's variant and warps, the
+   rows per block, the shared bytes per block and the kernel's registers
+   and spills; last, the phase's launches by variant
+   (``beam.variant_launches()``).
 3c. Approximate top-k against plain: ``approx_smallest_k`` (the seeding's
    fused distance epilogue + binning + top-k, ``csrc/approx_topk.cu``)
    against ``finish`` + ``approx_smallest_k_plain`` on the same cuBLAS dot
@@ -375,6 +379,12 @@ DEDUP_SHAPES = [
     ("sym walk step", 8192, 384, 64, 64, 192),
     (f"k_query {KQ_MAX} fused step", NQ_KQ, 384, 6048, 2144, None),
     (f"k_query {KQ_MAX} row step", NQ_KQ, 384, 6048, 2144, 288),
+] + [
+    # the fused walk at a pop budget of 3,200 (GIST1M's operating point):
+    # a 1,024-row tile and its compaction phases' 512 and 256 rows, each
+    # row's 3,232 seen ids over the split narrow row's 8 warps
+    (f"3,200-pop fused step, {B} rows", B, 32, 32, 3200, None)
+    for B in (1024, 512, 256)
 ]
 
 # the approximate top-k's check shapes: (label, rows, representatives n,
@@ -615,13 +625,16 @@ def replay_ms(fn, device, launches=DEDUP_LAUNCHES, reps=10):
     return ms / launches
 
 
-def dedup_resources(res, compact, K):
+def dedup_resources(res, compact, K, W=0, V=0):
     """Registers, local (spill) and static shared bytes of the dedup
-    kernel that a launch at K runs, alone or fused with the compaction,
-    from ``res`` (``beam.kernel_resources()``: ``cuobjdump -res-usage``;
-    None where the toolkit lacks it), or "not available"."""
-    # the template arguments <compact, register chunks>, mangled
-    tag = f"ILb{int(compact)}ELi{beam.register_chunks(K)}EE"
+    kernel that a launch at K, W, V runs, alone or fused with the
+    compaction, from ``res`` (``beam.kernel_resources()``: ``cuobjdump
+    -res-usage``; None where the toolkit lacks it), or "not available"."""
+    # the template arguments <compact, register chunks> or, for the split
+    # narrow row, <compact>, mangled
+    tag = (f"beam_dedup_split_kernelILb{int(compact)}EE"
+           if beam.variant(K, W, V) == "narrow_split"
+           else f"ILb{int(compact)}ELi{beam.register_chunks(K)}EE")
     return next(({f: r[f] for f in ("REG", "SHARED", "LOCAL", "STACK") if f in r}
                  for name, r in (res or {}).items() if tag in name),
                 "not available")
@@ -668,7 +681,9 @@ def measure_dedup(device, label, B, K, W, V, cap, resources=None):
     rows, smem = beam.rows_per_block(K, W, V), beam.shared_bytes(K, W, V)
     timing = (f"device: a CUDA graph of {DEDUP_LAUNCHES} launches"
               if device.type == "cuda" else "host clock, CPU")
-    print(f"beam dedup {label} ({what}) B={B} K={K} W={W} V={V}: kept "
+    variant = beam.variant(K, W, V)
+    print(f"beam dedup {label} ({what}) B={B} K={K} W={W} V={V}, {variant} "
+          f"row, warps a row {beam.split_warps(K, W, V) or 1}: kept "
           f"{kept:.3f} | differing entries {differ} | kernel {ms:.4f} ms "
           f"({timing}) | host path "
           f"{host_ms:.4f} ms | plain {plain_ms:.4f} ms | bound {bound_ms:.4f} "
@@ -679,18 +694,24 @@ def measure_dedup(device, label, B, K, W, V, cap, resources=None):
             "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes", "bound_share": bound_ms / ms, "bytes": nbytes,
             "rows_per_block": rows, "shared_bytes": smem,
-            "resources": resources, "kept": kept}
+            "resources": resources, "kept": kept, "variant": variant}
 
 
 def check_dedup(device, shapes=DEDUP_SHAPES):
     """Phase 3b: the dedup kernel against its plain version at every walk's
-    step shape. Returns {label: numbers}."""
+    step shape, and its launches by variant over the phase. Returns
+    {label: numbers}."""
     out = {}
     res = beam.kernel_resources()
+    before = beam.variant_launches()
     for label, B, K, W, V, cap in shapes:
         out[label] = measure_dedup(device, label, B, K, W, V, cap,
-                                   dedup_resources(res, cap is not None, K))
+                                   dedup_resources(res, cap is not None, K, W, V))
         torch.cuda.empty_cache()
+    after = beam.variant_launches()
+    by_variant = {k: after[k] - before.get(k, 0) for k in after}
+    print(f"beam dedup launches by variant: {json.dumps(by_variant)}",
+          flush=True)
     return out
 
 

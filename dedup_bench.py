@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The dedup kernel of this tree beside other builds of it, on one GPU.
 
-    python3 dedup_bench.py [--source OTHER.cu ...] [--rounds 3]
+    python3 dedup_bench.py [--source OTHER.cu ...] [--rounds 3] [--sweep]
 
 ``--source`` names another source with the same two C entry points
 (``beam_dedup_launch``, ``beam_dedup_compact_launch``): an earlier revision
@@ -9,7 +9,10 @@
 one constant changed. Every build is compiled in parallel into
 ``build/kernels/variants/`` and prints its registers, shared and local
 (spill) bytes. At each of ``chip_smoke.DEDUP_SHAPES`` (every walk's step
-shape, inputs from ``chip_smoke.dedup_inputs``) each build runs through the
+shape, the 3,200-pop fused walk's among them, inputs from
+``chip_smoke.dedup_inputs``; with ``--sweep`` also ``SWEEP_SHAPES``, the
+narrow row over seen lists from 160 to 3,232 ids at 1,024 and 8,192 rows,
+which sets ``beam.SPLIT_MIN_SEEN``) each build runs through the
 counted wrappers ``beam_dedup_mask`` / ``beam_dedup_compact`` with its entry
 points swapped in and must equal the plain version in every entry of ``ok``
 and ``packed``; then the builds are timed in turns (the order reversed
@@ -33,12 +36,20 @@ import chip_smoke as smoke
 from ggnn_torch.ops import beam
 from ggnn_torch.utils import nvcc
 
+# the narrow row (K = 32, a beam of 32) over rings of 128 to 3,200 ids, at a
+# fused tile's 1,024 rows and at 8,192: where the split row starts to pay
+SWEEP_SHAPES = [(f"narrow row, S={32 + V}, {B} rows", B, 32, 32, V, None)
+                for B in (1024, 8192)
+                for V in (128, 480, 736, 992, 1504, 2016, 3200)]
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--source", action="append", default=[],
                     help="another source with the same C entry points")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time the narrow row at SWEEP_SHAPES")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available() or args.rounds < 1:
         sys.exit("dedup_bench: needs a CUDA device and --rounds >= 1")
@@ -55,7 +66,8 @@ def main(argv=None):
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     report = {"smi": smi, "device": torch.cuda.get_device_name(0),
-              "launches_per_graph": smoke.DEDUP_LAUNCHES, "variants": []}
+              "launches_per_graph": smoke.DEDUP_LAUNCHES, "variants": [],
+              "rows": {}}
     fns = []
     for label, lib, s in zip(labels, libs, secs):
         res = nvcc.kernel_resources(lib)
@@ -66,13 +78,16 @@ def main(argv=None):
                                    "resources": res, "shapes": {}})
         fns.append(beam._bind(lib))
 
-    for label, B, K, W, V, cap in smoke.DEDUP_SHAPES:
+    shapes = smoke.DEDUP_SHAPES + (SWEEP_SHAPES if args.sweep else [])
+    for label, B, K, W, V, cap in shapes:
         with_valid = cap is not None
         st, cand, valid = smoke.dedup_inputs(dev, B, K, W, V, with_valid)
         want = beam.beam_dedup_mask_plain(st, cand, valid)
         want_packed = (None if cap is None else
                        beam.beam_compact_candidates_plain(cand, want, cap))
         nbytes, bound_ms = smoke.dedup_bound(B, K, W, V, cap, with_valid)
+        report["rows"][label] = beam.variant(K, W, V)
+        print(f"{label}: this tree's {report['rows'][label]} row", flush=True)
 
         def call():
             if cap is None:

@@ -54,6 +54,16 @@
 //     only first occurrences enter the table, valid or not, and a slot's
 //     column says seen or not; its seen ids come two a lane by scalar
 //     loads. It is a few dozen instructions a lane;
+//   * a narrow row with a long seen list (S = W + V >= kSplitMinSeen: the
+//     fused walk at a pop budget of thousands, whose ring is as long) is a
+//     block of its own, split_warps(K, S) warps: one warp pays S / 64
+//     dependent trips to memory, and a tile of a thousand rows holds too
+//     few warps to hide them. Every thread issues its kSplitLoads 16-byte
+//     loads of seen ids first; warp 0 builds the table as the narrow row
+//     does meanwhile; after a block barrier every warp probes its ids
+//     against that one table and marks hits; after a second, warp 0 writes
+//     the outputs. Short rows keep the one-warp row: their trips are few
+//     and a tile's rows fill the card;
 //   * a wide row, phase 1: every candidate with c != -1, valid or not, is
 //     inserted, so that an invalid first occurrence still drops its later
 //     copies, as the plain rule says: atomicCAS on the id; the lane that
@@ -93,6 +103,10 @@ constexpr int kSmemTarget = 48 * 1024;   // shared memory a block aims under
 constexpr int kSeen = 2;                 // 16-byte seen loads a lane holds
                                          // per batch: 4 * 32 * kSeen ids
 constexpr int kPassChunks = 12;          // the widest pass: 32 * 12 columns
+constexpr int kSplitMinSeen = 768;       // seen ids a narrow row splits from
+constexpr int kSplitMaxWarps = 8;        // warps of a split narrow row at most
+constexpr int kSplitLoads = 4;           // 16-byte seen loads a thread of a
+                                         // split row holds per batch
 
 __device__ __forceinline__ uint32_t slot_of(int id, int shift) {
   return (static_cast<uint32_t>(id) * 0x9E3779B1u) >> shift;
@@ -183,19 +197,22 @@ __device__ __forceinline__ void see(const int* keys, int* cols, uint32_t mask,
   }
 }
 
-__device__ __forceinline__ void load_batch(const Seen& seen, int i0, int lane,
-                                           int4 (&g)[kSeen]) {
+// a batch of N groups a thread: groups i0 + t + stride * u
+template <int N>
+__device__ __forceinline__ void load_batch(const Seen& seen, int i0, int t,
+                                           int stride, int4 (&g)[N]) {
 #pragma unroll
-  for (int u = 0; u < kSeen; ++u) g[u] = seen.group(i0 + 32 * u + lane);
+  for (int u = 0; u < N; ++u) g[u] = seen.group(i0 + stride * u + t);
 }
 
 // the ids of a batch, probed together
+template <int N>
 __device__ __forceinline__ void see_batch(const int* keys, int* cols,
                                           uint32_t mask, int shift,
-                                          const int4 (&g)[kSeen]) {
-  int id[4 * kSeen];
+                                          const int4 (&g)[N]) {
+  int id[4 * N];
 #pragma unroll
-  for (int u = 0; u < kSeen; ++u) {
+  for (int u = 0; u < N; ++u) {
     id[4 * u] = g[u].x;
     id[4 * u + 1] = g[u].y;
     id[4 * u + 2] = g[u].z;
@@ -262,11 +279,56 @@ __device__ __forceinline__ void insert_pass(int* keys, int* cols,
   }
 }
 
-// a row of K <= 32 columns, a candidate a lane: its repeats are the lanes
-// of equal ids (__match_any_sync), so only first occurrences -- one a id --
-// enter the table, and a lane's slot is marked seen or not; the seen ids
-// come two a lane per batch by scalar loads (coalesced), with no
-// alignment to find: a narrow row's time is its instructions
+// a narrow row's candidates (K <= 32, a candidate a lane) into its table:
+// only first occurrences -- one a id, the lanes of equal ids found by
+// __match_any_sync -- enter it, at column 0 (not seen), so no two lanes
+// insert one id and a slot taken is another id's. Returns whether the
+// lane's candidate is its id's first occurrence; *slot: its slot
+__device__ __forceinline__ bool narrow_insert(int* keys, int* cols,
+                                              uint32_t mask, int shift,
+                                              int lane, int c,
+                                              uint32_t* slot) {
+  int4* keys4 = reinterpret_cast<int4*>(keys);
+  for (int i = lane; i <= static_cast<int>(mask >> 2); i += 32) {
+    keys4[i] = make_int4(-1, -1, -1, -1);
+  }
+  const uint32_t below = (1u << lane) - 1u;
+  const bool first = (__match_any_sync(0xffffffffu, c) & below) == 0;
+  __syncwarp();
+  uint32_t s = slot_of(c, shift);
+  bool open = c != -1 && first && atomicCAS(keys + s, -1, c) != -1;
+  while (__any_sync(0xffffffffu, open)) {
+    if (open) {
+      s = (s + 1) & mask;
+      open = atomicCAS(keys + s, -1, c) != -1;
+    }
+  }
+  if (c != -1 && first) cols[s] = 0;
+  *slot = s;
+  return first;
+}
+
+// a narrow row's outputs: ok[b, lane] and, with COMPACT, the kept ids
+// packed left in column order (a ballot), the tail of packed[b, :min(cap,
+// K)] -1
+template <bool COMPACT>
+__device__ __forceinline__ void narrow_write(bool keep, int c, int lane,
+                                             int K, int cap, uint8_t* ok,
+                                             int32_t* packed, long long b) {
+  if (lane < K) ok[b * K + lane] = keep;
+  if (COMPACT) {
+    const int capK = cap < K ? cap : K;
+    int32_t* prow = packed + b * capK;
+    const uint32_t m = __ballot_sync(0xffffffffu, keep);
+    const int pos = __popc(m & ((1u << lane) - 1u));
+    if (keep && pos < capK) prow[pos] = c;
+    for (int p = __popc(m) + lane; p < capK; p += 32) prow[p] = -1;
+  }
+}
+
+// a row of K <= 32 columns, a candidate a lane (narrow_insert); the seen
+// ids come two a lane per batch by scalar loads (coalesced), with no
+// alignment to find: a short narrow row's time is its instructions
 template <bool COMPACT>
 __device__ __forceinline__ void narrow_row(
     int* keys, int* cols, uint32_t mask, int shift, int lane,
@@ -285,33 +347,12 @@ __device__ __forceinline__ void narrow_row(
     }
   };
   load(0);
-  const int capK = cap < K ? cap : K;
-  int32_t* prow = COMPACT ? packed + b * capK : nullptr;
   if (!__any_sync(0xffffffffu, c != -1 && v)) {  // nothing to keep
-    if (lane < K) ok[b * K + lane] = 0;
-    if (COMPACT) {
-      for (int p = lane; p < capK; p += 32) prow[p] = -1;
-    }
+    narrow_write<COMPACT>(false, c, lane, K, cap, ok, packed, b);
     return;
   }
-  int4* keys4 = reinterpret_cast<int4*>(keys);
-  for (int i = lane; i <= static_cast<int>(mask >> 2); i += 32) {
-    keys4[i] = make_int4(-1, -1, -1, -1);
-  }
-  const uint32_t below = (1u << lane) - 1u;
-  const bool first = (__match_any_sync(0xffffffffu, c) & below) == 0;
-  __syncwarp();
-
-  // no two lanes insert one id: a slot taken is another id's
-  uint32_t s = slot_of(c, shift);
-  bool open = c != -1 && first && atomicCAS(keys + s, -1, c) != -1;
-  while (__any_sync(0xffffffffu, open)) {
-    if (open) {
-      s = (s + 1) & mask;
-      open = atomicCAS(keys + s, -1, c) != -1;
-    }
-  }
-  if (c != -1 && first) cols[s] = 0;
+  uint32_t s;
+  const bool first = narrow_insert(keys, cols, mask, shift, lane, c, &s);
   __syncwarp();
 
   for (int i0 = 0; i0 < S; i0 += 64) {
@@ -319,15 +360,8 @@ __device__ __forceinline__ void narrow_row(
     see(keys, cols, mask, shift, id);
   }
   __syncwarp();
-
-  const bool keep = c != -1 && v && first && cols[s] == 0;
-  if (lane < K) ok[b * K + lane] = keep;
-  if (COMPACT) {
-    const uint32_t m = __ballot_sync(0xffffffffu, keep);
-    const int pos = __popc(m & below);
-    if (keep && pos < capK) prow[pos] = c;
-    for (int p = __popc(m) + lane; p < capK; p += 32) prow[p] = -1;
-  }
+  narrow_write<COMPACT>(c != -1 && v && first && cols[s] == 0, c, lane, K,
+                        cap, ok, packed, b);
 }
 
 // a row of any K, in passes of 32 * C columns, C chunks of 32 a lane holds
@@ -351,7 +385,7 @@ __device__ __forceinline__ void wide_row(
   seen.nbeam4 = nbeam4;
   seen.n4 = nbeam4 + nring4;
   int4 g[kSeen];
-  load_batch(seen, 0, lane, g);
+  load_batch(seen, 0, lane, 32, g);
 
   const int pass = 32 * C;
   const int capK = cap < K ? cap : K;
@@ -392,7 +426,7 @@ __device__ __forceinline__ void wide_row(
   }
   for (int i0 = 0; i0 < seen.n4; i0 += 32 * kSeen) {
     int4 next[kSeen];
-    load_batch(seen, i0 + 32 * kSeen, lane, next);
+    load_batch(seen, i0 + 32 * kSeen, lane, 32, next);
     see_batch(keys, cols, mask, shift, g);
 #pragma unroll
     for (int u = 0; u < kSeen; ++u) g[u] = next[u];
@@ -462,6 +496,85 @@ __global__ void __launch_bounds__(kMaxWarps * 32) beam_dedup_kernel(
   }
 }
 
+// a narrow row (K <= 32) with a long seen list, a block a row of
+// blockDim.x / 32 warps: every thread's first batch of kSplitLoads 16-byte
+// groups is in flight before warp 0 builds the row's one table
+// (narrow_insert); after a block barrier every thread probes its ids and
+// marks hits seen (a row longer than one batch loads and probes the next);
+// after a second, warp 0 writes the outputs (narrow_write). A row none of
+// whose candidates is both an id and valid keeps none, after the first
+// barrier
+template <bool COMPACT>
+__global__ void __launch_bounds__(kSplitMaxWarps * 32) beam_dedup_split_kernel(
+    const int32_t* __restrict__ cand, long long ld_cand,
+    const uint8_t* __restrict__ valid, long long ld_valid,
+    const int32_t* __restrict__ beam_i, long long ld_beam,
+    const int32_t* __restrict__ vis, long long ld_vis,
+    uint8_t* __restrict__ ok, int32_t* __restrict__ packed, int K, int W,
+    int V, int cap, int log_slots) {
+  extern __shared__ int4 smem[];
+  __shared__ int any_keep;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int stride = blockDim.x;
+  const long long b = blockIdx.x;
+  const int T = 1 << log_slots;
+  const uint32_t mask = T - 1u;
+  const int shift = 32 - log_slots;
+  int* keys = reinterpret_cast<int*>(smem);
+  int* cols = keys + T;
+
+  Seen seen;
+  int nbeam4, nring4;
+  const int edge_b = split(beam_i + b * ld_beam, W, t, &seen.beam4, &nbeam4);
+  const int edge_r = split(vis + b * ld_vis, V, t - 16, &seen.ring4, &nring4);
+  seen.nbeam4 = nbeam4;
+  seen.n4 = nbeam4 + nring4;
+  int4 g[kSplitLoads];
+  load_batch(seen, 0, t, stride, g);
+
+  int c = -1;
+  bool v = false, first = false;
+  uint32_t s = 0;
+  if (t < 32) {
+    c = lane < K ? __ldg(cand + b * ld_cand + lane) : -1;
+    v = lane < K && (valid == nullptr || __ldg(valid + b * ld_valid + lane) != 0);
+    const bool any = __any_sync(0xffffffffu, c != -1 && v);
+    if (any) first = narrow_insert(keys, cols, mask, shift, lane, c, &s);
+    if (lane == 0) any_keep = any;
+  }
+  __syncthreads();
+  if (!any_keep) {  // nothing to keep
+    if (t < 32) narrow_write<COMPACT>(false, c, lane, K, cap, ok, packed, b);
+    return;
+  }
+
+  {
+    const int edge[2] = {edge_b, edge_r};
+    see(keys, cols, mask, shift, edge);
+  }
+  // a group's ids probed at a time: 40 registers a thread against 63 for
+  // a batch's at once, so more rows stay resident (faster on the H100 at
+  // 3,232 seen ids a row: dedup_bench.py)
+  auto probe = [&]() {
+#pragma unroll
+    for (int u = 0; u < kSplitLoads; ++u) {
+      const int4 one[1] = {g[u]};
+      see_batch(keys, cols, mask, shift, one);
+    }
+  };
+  probe();
+  for (int i0 = stride * kSplitLoads; i0 < seen.n4; i0 += stride * kSplitLoads) {
+    load_batch(seen, i0, t, stride, g);  // rows longer than a batch
+    probe();
+  }
+  __syncthreads();
+  if (t < 32) {
+    narrow_write<COMPACT>(c != -1 && v && first && cols[s] == 0, c, lane, K,
+                          cap, ok, packed, b);
+  }
+}
+
 // log2 of a row's table slots: the least 2^L >= max(32, 2K), and >= 4K
 // where the row's seen ids outnumber 8K, so that their probes, which then
 // take most of the time, meet fewer filled slots
@@ -485,6 +598,33 @@ int rows_per_block(int K, int S) {
 // shared_bytes computes the same)
 long long shared_bytes(int K, int S) {
   return static_cast<long long>(rows_per_block(K, S)) * (8LL << log_slots(K, S));
+}
+
+// warps of a split narrow row: 0 where the row keeps one warp (K > 32, or
+// fewer than kSplitMinSeen seen ids), else the least power of two from 2
+// whose threads hold the row's seen ids in one batch of kSplitLoads 16-byte
+// loads each, at most kSplitMaxWarps (ggnn_torch/ops/beam.py: split_warps)
+int split_warps(int K, int S) {
+  if (K > 32 || S < kSplitMinSeen) return 0;
+  int w = 2;
+  while (w < kSplitMaxWarps && 32LL * w * kSplitLoads * 4 < S) w *= 2;
+  return w;
+}
+
+template <bool COMPACT>
+int launch_split(const void* cand, long long ld_cand, const void* valid,
+                 long long ld_valid, const void* beam_i, long long ld_beam,
+                 const void* vis, long long ld_vis, void* ok, void* packed,
+                 int B, int K, int W, int V, int cap, int warps, void* stream) {
+  const int slots_log = log_slots(K, W + V);
+  beam_dedup_split_kernel<COMPACT><<<B, warps * 32, 8 << slots_log,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(cand), ld_cand,
+      static_cast<const uint8_t*>(valid), ld_valid,
+      static_cast<const int32_t*>(beam_i), ld_beam,
+      static_cast<const int32_t*>(vis), ld_vis, static_cast<uint8_t*>(ok),
+      static_cast<int32_t*>(packed), K, W, V, cap, slots_log);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool COMPACT, int C>
@@ -515,13 +655,20 @@ int launch_chunks(const void* cand, long long ld_cand, const void* valid,
 }
 
 // the fewest register chunks that hold K in one pass: 1 (the fused
-// walks' K = 32), 3 (the merges' 96), else kPassChunks (passes above 384)
+// walks' K = 32; a long seen list splits it over warps), 3 (the merges'
+// 96), else kPassChunks (passes above 384)
 template <bool COMPACT>
 int launch(const void* cand, long long ld_cand, const void* valid,
            long long ld_valid, const void* beam_i, long long ld_beam,
            const void* vis, long long ld_vis, void* ok, void* packed, int B,
            int K, int W, int V, int cap, void* stream) {
   if (K <= 32) {
+    const int warps = split_warps(K, W + V);
+    if (warps > 0) {
+      return launch_split<COMPACT>(cand, ld_cand, valid, ld_valid, beam_i,
+                                   ld_beam, vis, ld_vis, ok, packed, B, K, W,
+                                   V, cap, warps, stream);
+    }
     return launch_chunks<COMPACT, 1>(cand, ld_cand, valid, ld_valid, beam_i,
                                      ld_beam, vis, ld_vis, ok, packed, B, K, W,
                                      V, cap, stream);
@@ -560,3 +707,7 @@ extern "C" int beam_dedup_compact_launch(const void* cand, long long ld_cand,
   return launch<true>(cand, ld_cand, valid, ld_valid, beam_i, ld_beam, vis,
                       ld_vis, ok, packed, B, K, W, V, cap, stream);
 }
+
+// the warps of a block a row of K candidates and W + V seen ids takes in
+// the split narrow row, 0 where it takes another (split_warps)
+extern "C" int beam_dedup_split_warps(int K, int S) { return split_warps(K, S); }

@@ -74,6 +74,9 @@ __all__ = [
     "beam_transform",
     "cap_candidates",
     "cap_candidates_plain",
+    "split_warps",
+    "variant",
+    "variant_launches",
 ]
 
 EMPTY_ID = -1
@@ -89,6 +92,13 @@ MAX_SHARED_BYTES = 232_448
 # block aims under (``csrc/beam_dedup.cu``: kMaxWarps, kSmemTarget)
 MAX_ROWS_PER_BLOCK = 8
 SMEM_TARGET = 48 * 1024
+# a narrow row (K <= 32) with at least ``SPLIT_MIN_SEEN`` seen ids (W + V)
+# is a block of its own, split over 2 to ``SPLIT_MAX_WARPS`` warps whose
+# threads hold its seen ids in ``SPLIT_LOADS`` 16-byte loads each
+# (``csrc/beam_dedup.cu``: kSplitMinSeen, kSplitMaxWarps, kSplitLoads)
+SPLIT_MIN_SEEN = 768
+SPLIT_MAX_WARPS = 8
+SPLIT_LOADS = 4
 
 # launches of the dedup kernel (the plain CPU route does not count): all of
 # them, and those that also compact; updated under ``_count_lock``, and a
@@ -96,6 +106,8 @@ SMEM_TARGET = 48 * 1024
 # (``graphs.count_launch``), as ``ops/adjacency.py`` counts its kernel
 launches = 0
 launches_compact = 0
+# the same launches by :func:`variant`
+launches_by_variant: dict = {}
 # pops of CUDA tensors: the pop kernel's launches, and the plain route's
 # pops (``beam_pop_plain`` called on the card); counted as the dedup's
 pops_kernel = 0
@@ -295,9 +307,34 @@ def table_slots(K: int, W: int, V: int) -> int:
     return 1 << max(5, (want - 1).bit_length())
 
 
+def split_warps(K: int, W: int, V: int) -> int:
+    """Warps of a split narrow row's block: 0 where the row keeps one warp
+    (K > 32, or fewer than ``SPLIT_MIN_SEEN`` seen ids), else the least
+    power of two from 2 whose threads hold the W + V seen ids in
+    ``SPLIT_LOADS`` 16-byte loads each, at most ``SPLIT_MAX_WARPS``."""
+    if K > 32 or W + V < SPLIT_MIN_SEEN:
+        return 0
+    w = 2
+    while w < SPLIT_MAX_WARPS and 32 * w * SPLIT_LOADS * 4 < W + V:
+        w *= 2
+    return w
+
+
+def variant(K: int, W: int, V: int) -> str:
+    """The kernel row a launch takes: "narrow" (K <= 32, a warp a row),
+    "narrow_split" (K <= 32 and a long seen list: a block of
+    :func:`split_warps` warps a row) or "wide" (K > 32)."""
+    if K > 32:
+        return "wide"
+    return "narrow_split" if split_warps(K, W, V) else "narrow"
+
+
 def rows_per_block(K: int, W: int, V: int) -> int:
-    """Rows (one warp each) of a kernel block: ``MAX_ROWS_PER_BLOCK``,
-    halved while the block's tables exceed ``SMEM_TARGET``, at least 1."""
+    """Rows of a kernel block: one for a split narrow row, else (a warp a
+    row) ``MAX_ROWS_PER_BLOCK``, halved while the block's tables exceed
+    ``SMEM_TARGET``, at least 1."""
+    if split_warps(K, W, V):
+        return 1
     r = MAX_ROWS_PER_BLOCK
     while r > 1 and r * 8 * table_slots(K, W, V) > SMEM_TARGET:
         r //= 2
@@ -381,15 +418,23 @@ def _launch(state: BeamState, cand_i, valid, cap):
             err = mask_fn(*args, ok.data_ptr(), B, K, W, V, stream)
     if err:
         raise RuntimeError(f"beam dedup kernel launch failed: CUDA error {err}")
-    graphs.count_launch(_count, compact)
+    graphs.count_launch(_count, compact, variant(K, W, V))
     return ok, packed
 
 
-def _count(compact: bool) -> None:
+def _count(compact: bool, key: str) -> None:
     global launches, launches_compact
     with _count_lock:
         launches += 1
         launches_compact += compact
+        launches_by_variant[key] = launches_by_variant.get(key, 0) + 1
+
+
+def variant_launches() -> dict:
+    """The dedup kernel's launches by :func:`variant` since import (a
+    launch in a CUDA graph once per replay); the plain route counts none."""
+    with _count_lock:
+        return dict(launches_by_variant)
 
 
 def beam_dedup_mask(
