@@ -28,16 +28,18 @@ def control_checks(cfg: dict, mix: dict, seed: int, device) -> dict:
 
     base, pool = data.generate(cfg["data"], int(cfg["n_base"]), int(cfg["dim"]),
                                int(mix["pool"]), seed, device)
-    k = int(cfg["k_query"])
-    gt = reference.exact_knn(base, pool, harness.RECALL_K)[0].cpu().numpy()
+    k, measure = int(cfg["k_query"]), cfg["measure"]
+    gt = reference.exact_knn(base, pool, harness.RECALL_K,
+                             measure=measure)[0].cpu().numpy()
     answered = []
     for lo, n in harness.cycle(mix):
-        i, d = reference.exact_knn(base, pool[lo : lo + n], k, tf32=True)
+        i, d = reference.exact_knn(base, pool[lo : lo + n], k, measure=measure,
+                                   tf32=True)
         answered.append((lo, n, i.cpu().numpy(), d.cpu().numpy()))
     rows, ids, dists, canon, per_call = harness._answers(answered)
     recall = harness._recall(answered, canon, per_call, gt, harness.RECALL_K)
     return reference.judge(base, pool, rows, ids, dists, cfg["limits"],
-                           recall=recall)
+                           recall=recall, measure=measure)
 
 
 def main(argv=None) -> int:

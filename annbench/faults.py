@@ -12,8 +12,8 @@ Each fault breaks the timed path as a later change could:
 * ``one_step``: the walk stops after one step (``max_iterations`` equal to
   ``pops_per_iter``);
 * ``fixed_seeds`` (fused engine only): the seeding returns the first
-  ``num_seeds`` representatives of every query in place of the
-  approximate top-k's;
+  ``num_seeds`` representatives of every query, at their true distances
+  under the run's measure, in place of the approximate top-k's;
 * ``half_batch``: the second half of each batch gets the first half's
   answers;
 * ``altered_answer``: one id of each answer is altered where it is
@@ -58,18 +58,20 @@ def step_unchanged():
 @contextmanager
 def fixed_seeds():
     """The fused seeding returns the first ``k`` representatives of every
-    query (with their true distances) instead of its nearest ones."""
+    query (with their true distances under the run's measure) instead of
+    its nearest ones."""
     import torch
 
+    from ggnn_torch.config import DistanceMeasure
+    from ggnn_torch.ops.distance import dist_block
     from ggnn_torch.query import fused
 
     seeds = fused.dist_approx_smallest_k
 
-    def first_k(q, c, k, measure=None, *, q_sq, c_sq):
-        c_k = c[:k].to(torch.float32)
-        d = q_sq[:, None] + c_sq[:k][None, :] - 2.0 * (q.to(torch.float32) @ c_k.T)
+    def first_k(q, c, k, measure=DistanceMeasure.Euclidean, *, q_sq, c_sq):
+        d = dist_block(q, c[:k], measure, q_sq=q_sq, c_sq=c_sq[:k])
         pos = torch.arange(k, device=q.device, dtype=torch.int32)
-        return d.clamp_min(0.0), pos.expand(q.shape[0], k).contiguous()
+        return d, pos.expand(q.shape[0], k).contiguous()
 
     fused.dist_approx_smallest_k = first_k
     try:
@@ -125,7 +127,7 @@ def readings(g, cfg: dict, mix: dict, base, pool, gt, faults=None):
         rows, ids, dists, canon, per_call = harness._answers(answered)
         recall = harness._recall(answered, canon, per_call, gt, harness.RECALL_K)
         yield name, reference.judge(base, pool, rows, ids, dists, cfg["limits"],
-                                    recall=recall)
+                                    recall=recall, measure=cfg["measure"])
 
 
 def main(argv=None) -> int:
@@ -150,7 +152,8 @@ def main(argv=None) -> int:
         base, pool = data.generate(cfg["data"], int(cfg["n_base"]), int(cfg["dim"]),
                                    int(mix["pool"]), seed, device)
         g, _ = harness.build_program(cfg, base, device)
-        gt = reference.exact_knn(base, pool, harness.RECALL_K)[0].cpu().numpy()
+        gt = reference.exact_knn(base, pool, harness.RECALL_K,
+                                 measure=cfg["measure"])[0].cpu().numpy()
         for name, checks in readings(g, cfg, mix, base, pool, gt):
             print(json.dumps({"workload": args.workload, "seed": seed, "fault": name,
                               "correct": reference.passed(checks), "checks": checks}),

@@ -141,19 +141,27 @@ def _recall(calls, canon, per_call, gt: np.ndarray, k: int) -> float:
 
 def build_program(cfg: dict, base: torch.Tensor, device: torch.device):
     """The system under test over ``base``: a ``GGNN`` built as the
-    configuration says, with its fused index where its engine is the fused
-    one. Returns (the ``GGNN``, the build's seconds)."""
-    from ggnn_torch import GGNN
+    configuration says, under its ``measure``, with its fused index where
+    its engine is the fused one. Returns (the ``GGNN``, the build's
+    seconds). A ``measure`` the reference does not know, or a
+    ``precision`` other than the f32 that ``data.generate`` draws, raises
+    a ``ValueError`` that names the key."""
+    from ggnn_torch import GGNN, DistanceMeasure
 
-    if cfg["measure"] != "euclidean":
-        raise ValueError("the reference judges squared L2 only")
+    if cfg["measure"] not in reference.MEASURES:
+        raise ValueError(f"measure {cfg['measure']!r}: the harness runs "
+                         f"{', '.join(reference.MEASURES)}")
+    if cfg["precision"] != "float32":
+        raise ValueError(f"precision {cfg['precision']!r}: the harness hands "
+                         "the program a float32 base only")
     _prepare_kernels(device)
     g = GGNN(device=device)
     g.set_base(base)
     _sync(device)
     t0 = time.perf_counter()
     g.build(k_build=int(cfg["k_build"]), tau_build=float(cfg["tau_build"]),
-            refinement_iterations=int(cfg["refinement_iterations"]))
+            refinement_iterations=int(cfg["refinement_iterations"]),
+            measure=DistanceMeasure.parse(cfg["measure"]))
     _sync(device)
     build_s = time.perf_counter() - t0
     if cfg["engine"] == "fused":
@@ -238,7 +246,8 @@ def run_cell(bench: dict, name: str, *, seed: int, seconds: float, trace: bool,
           f"{run.window_s:.3f} s; walk graphs captured in it: {window_captures}",
           file=log, flush=True)
 
-    gt = reference.exact_knn(base, pool, RECALL_K)[0].cpu().numpy()
+    gt = reference.exact_knn(base, pool, RECALL_K,
+                             measure=cfg["measure"])[0].cpu().numpy()
     rows, ids, dists, canon, per_call = _answers(answered)
     in_window = len(run.latencies)
     run.recall = _recall(answered[:in_window], canon, per_call[:in_window],
@@ -246,7 +255,7 @@ def run_cell(bench: dict, name: str, *, seed: int, seconds: float, trace: bool,
     recall = (_recall(answered, canon, per_call, gt, RECALL_K)
               if len(answered) > in_window else run.recall)
     checks = reference.judge(base, pool, rows, ids, dists, cfg["limits"],
-                             recall=recall)
+                             recall=recall, measure=cfg["measure"])
     bad = checks["bad_ids"]["value"] + checks["dup_rows"]["value"]
 
     values = {}

@@ -5,13 +5,19 @@ It imports nothing of the program and takes nothing the program made: it
 reads the base and the queries that the harness drew and handed to both
 sides, and reads the program's answers only to judge them.
 
-* :func:`exact_knn`: the exact k nearest by squared L2, one dense f32
-  product per block of queries, TF32 off (``tf32=True`` is the control:
-  the same computation in the nearest precision below, TF32 on the card,
-  inputs rounded to TF32's 10-bit mantissa on the CPU).
-* :func:`pair_dists`: the squared L2 distance of each (query, returned
-  id) pair in float64, ``sum((q - b) ** 2)``: the reference's value of each
-  returned distance.
+Two measures (a configuration's ``measure``), GGNN's own
+(``include/ggnn/cuda_utils/distance.cuh:140-159``):
+
+* ``"euclidean"``: the squared L2 distance ``sum((q - b) ** 2)``;
+* ``"cosine"``: ``|1 - q.b / sqrt(|q|^2 |b|^2)|``, and 1 where either
+  squared norm is 0.
+
+* :func:`exact_knn`: the exact k nearest, one dense f32 product per block
+  of queries, TF32 off (``tf32=True`` is the control: the same computation
+  in the nearest precision below, TF32 on the card, inputs rounded to
+  TF32's 10-bit mantissa on the CPU).
+* :func:`pair_dists`: the distance of each (query, returned id) pair in
+  float64: the reference's value of each returned distance.
 * :func:`recall_hits`: how many of each row's exact nearest were returned.
 * :func:`judge`: the numbers compared, each beside its limit.
 """
@@ -23,11 +29,27 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
-__all__ = ["CHECKS", "exact_knn", "judge", "pair_dists", "passed", "recall_hits"]
+__all__ = ["CHECKS", "MEASURES", "exact_knn", "judge", "pair_dists", "passed",
+           "recall_hits"]
 
 # the numbers compared: ``dist_gap`` and ``recall_miss`` against the
 # configuration's limits; the two counts are exact comparisons, limit 0
 CHECKS = ("dist_gap", "recall_miss", "bad_ids", "dup_rows")
+MEASURES = ("euclidean", "cosine")
+
+
+def _is_cosine(measure: str) -> bool:
+    if measure not in MEASURES:
+        raise ValueError(f"measure {measure!r}: the reference knows "
+                         f"{', '.join(MEASURES)}")
+    return measure == "cosine"
+
+
+def _cosine_(dot: torch.Tensor, a_sq: torch.Tensor, b_sq: torch.Tensor) -> torch.Tensor:
+    """``dot`` made, in place, into ``|1 - dot / sqrt(a_sq b_sq)|``, and 1
+    where ``a_sq`` or ``b_sq`` (broadcastable to it) is 0."""
+    dot.div_((a_sq * b_sq).sqrt_()).neg_().add_(1.0).abs_()
+    return dot.masked_fill_(a_sq == 0, 1.0).masked_fill_(b_sq == 0, 1.0)
 
 
 @contextmanager
@@ -48,10 +70,12 @@ def _round_tf32(x: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def exact_knn(base: torch.Tensor, queries: torch.Tensor, k: int, *,
-              tf32: bool = False, block: int = 2048):
+              measure: str = "euclidean", tf32: bool = False, block: int = 2048):
     """(ids [Q, k] int64, dists [Q, k] f32) of the exact ``k`` nearest base
-    rows of each query row by squared L2, ascending. ``|q|^2 + |b|^2 - 2
-    q.b`` from one f32 product per block of ``block`` queries."""
+    rows of each query row under ``measure``, ascending, from one f32
+    product ``q.b`` per block of ``block`` queries: squared L2 as ``|q|^2 +
+    |b|^2 - 2 q.b``, cosine as ``|1 - q.b / sqrt(|q|^2 |b|^2)|``."""
+    cosine = _is_cosine(measure)
     base = base.to(torch.float32)
     b_sq = (base * base).sum(1)
     emulate = tf32 and base.device.type != "cuda"
@@ -62,7 +86,10 @@ def exact_knn(base: torch.Tensor, queries: torch.Tensor, k: int, *,
             q = queries[lo : lo + block].to(torch.float32)
             q_sq = (q * q).sum(1)
             d = torch.mm(_round_tf32(q) if emulate else q, b_mat.T)
-            d.mul_(-2.0).add_(b_sq[None, :]).add_(q_sq[:, None]).clamp_min_(0.0)
+            if cosine:
+                _cosine_(d, q_sq[:, None], b_sq[None, :])
+            else:
+                d.mul_(-2.0).add_(b_sq[None, :]).add_(q_sq[:, None]).clamp_min_(0.0)
             dist, idx = torch.topk(d, k, dim=1, largest=False, sorted=True)
             del d
             out_i.append(idx)
@@ -71,15 +98,21 @@ def exact_knn(base: torch.Tensor, queries: torch.Tensor, k: int, *,
 
 
 @torch.no_grad()
-def pair_dists(base: torch.Tensor, queries: torch.Tensor,
-               ids: torch.Tensor) -> torch.Tensor:
-    """[M, k] float64 squared L2 distance of ``queries[m]`` to
+def pair_dists(base: torch.Tensor, queries: torch.Tensor, ids: torch.Tensor,
+               *, measure: str = "euclidean") -> torch.Tensor:
+    """[M, k] float64 distance under ``measure`` of ``queries[m]`` to
     ``base[ids[m, j]]``; inf where the id is outside the base."""
+    cosine = _is_cosine(measure)
     n = base.shape[0]
     ok = (ids >= 0) & (ids < n)
     rows = base[ids.clamp(0, n - 1)].to(torch.float64)
-    diff = rows - queries.to(torch.float64)[:, None, :]
-    d = (diff * diff).sum(-1)
+    if cosine:
+        q = queries.to(torch.float64)
+        d = _cosine_(torch.einsum("mkd,md->mk", rows, q), (q * q).sum(-1)[:, None],
+                     (rows * rows).sum(-1))
+    else:
+        diff = rows - queries.to(torch.float64)[:, None, :]
+        d = (diff * diff).sum(-1)
     return torch.where(ok, d, torch.full_like(d, float("inf")))
 
 
@@ -92,9 +125,9 @@ def recall_hits(ids: np.ndarray, gt: np.ndarray) -> np.ndarray:
 @torch.no_grad()
 def judge(base: torch.Tensor, pool: torch.Tensor, rows: np.ndarray,
           ids: np.ndarray, dists: np.ndarray, limits: dict, *,
-          recall: float, block: int = 8192) -> dict:
+          recall: float, measure: str = "euclidean", block: int = 8192) -> dict:
     """The numbers compared over the answers ``ids``, ``dists`` [M, k] to
-    the pool rows ``rows`` [M], each {"value", "limit"}:
+    the pool rows ``rows`` [M] under ``measure``, each {"value", "limit"}:
 
     * ``dist_gap``: the widest gap between a returned distance and the
       reference's distance of the returned id, as a share of the larger of
@@ -120,7 +153,7 @@ def judge(base: torch.Tensor, pool: torch.Tensor, rows: np.ndarray,
         bad += int((~in_range).sum())
         srt = torch.sort(i, dim=1).values
         dup += int(((srt[:, 1:] == srt[:, :-1]).any(1) & in_range).sum())
-        ref.append(pair_dists(base, q, i)[in_range])
+        ref.append(pair_dists(base, q, i, measure=measure)[in_range])
         got.append(d.to(torch.float64)[in_range])
     ref = torch.cat(ref) if ref else torch.zeros((0, 1), dtype=torch.float64)
     got = torch.cat(got) if got else torch.zeros((0, 1), dtype=torch.float64)

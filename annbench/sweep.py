@@ -59,7 +59,8 @@ def main(argv=None) -> int:
     g, build_s = harness.build_program(cfg, base, device)
     print(json.dumps({"config": args.config, "seed": args.seed, "build_s": build_s,
                       "device": torch.cuda.get_device_name(device)}), flush=True)
-    gt = reference.exact_knn(base, pool, harness.RECALL_K)[0].cpu().numpy()
+    gt = reference.exact_knn(base, pool, harness.RECALL_K,
+                             measure=cfg["measure"])[0].cpu().numpy()
     plan = harness.cycle(mix)
     chosen = None
     for point in SWEEP:

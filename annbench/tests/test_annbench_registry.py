@@ -8,7 +8,7 @@ import re
 import pytest
 
 from annbench import harness, registry
-from conftest import CHECKOUT, make_bench
+from conftest import CHECKOUT, HERE, make_bench
 
 BENCH = json.loads((CHECKOUT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
@@ -106,3 +106,15 @@ def test_the_closed_loop_wraps_at_the_end_of_the_pool():
 def test_names_outside_the_alphabet_are_refused(bad):
     with pytest.raises(ValueError):
         registry.config(bad)
+
+
+@pytest.mark.parametrize("key,value", [("measure", "inner_product"), ("measure", "l2"),
+                                       ("precision", "uint8"), ("precision", "bfloat16")])
+def test_a_measure_or_precision_the_harness_cannot_judge_fails_at_set_up(tmp_path, key, value):
+    (tmp_path / "configs").mkdir()
+    cfg = dict(registry.config("tiny", (HERE,)), name="odd_cfg", **{key: value})
+    (tmp_path / "configs" / "odd_cfg.json").write_text(json.dumps(cfg))
+    bench = make_bench([["odd-cell", "odd_cfg", "small"]])
+    with pytest.raises(ValueError, match=f"^{key} {value!r}"):
+        harness.run_cell(bench, "odd-cell", seed=7, seconds=0.1, trace=False,
+                         roots=(tmp_path, HERE, registry.ROOT), device="cpu")
