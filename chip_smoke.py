@@ -20,7 +20,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. Kernel against plain: ``adjacency_dot`` vs ``adjacency_dot_plain`` on the
    card at the paths' shapes (B=8192 rows, P=8 anchors, D=128 bytes per
    code row, ~10% empty anchors: 48 rows per block for group 1, 24 for
-   int4, 96 over half as many blocks for group 2), live lanes compared at
+   int4, 96 over half as many blocks for group 2), and at glove100's step
+   (``TAIL_SHAPES``: D=100, the tail kernels; u8 with 24 rows a block, int4
+   with 12, over 8,192 and 10,240 rows, P=8), live lanes compared at
    rtol 1e-5 / atol 1e-2 (f32 summation order); both timed with CUDA events
    after a warm-up. Phases 4 and 6 repeat the check on the real anchors of
    a fused query's third walk step for each layout.
@@ -269,7 +271,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    move -- each block a live anchor names read once, the query rows and
    anchors read once, each live output lane written once -- at the H100's
    3.35 TB/s, against 2 flops per code at 67 TFLOP/s f32; the share of it
-   reached; the int4, group-2 and real-anchor numbers; launches per path;
+   reached; the int4, group-2, tail and real-anchor numbers; launches per path;
    the resources and the I2F count of phase 2), ``beam_dedup`` and
    ``beam_dedup_compact`` (phase 3b's numbers at every shape, the bytes
    bound -- each input read once, each output written once; launches per
@@ -365,6 +367,15 @@ N_HEADLINE, NQ_HEADLINE = 1_000_000, 50_000
 MIX = (1000, 3000, 777, 5000, 10000, 1500, 4096, 2500, 8192, 300)
 # the H100's published peaks (SXM, 700 W): HBM bytes/s and f32 FLOP/s
 HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
+# the tail kernels' check shapes: glove100's fused step (k_build 24, P=8,
+# code rows of 100 bytes): (label, nibbles, code rows per block, rows)
+TAIL_D = 100
+TAIL_SHAPES = [
+    ("glove100 u8 step", False, 24, 8192),
+    ("glove100 u8 step 10,240 rows", False, 24, 10240),
+    ("glove100 int4 step", True, 12, 8192),
+    ("glove100 int4 step 10,240 rows", True, 12, 10240),
+]
 # launches of the dedup kernel captured into the CUDA graph that phase 3b
 # replays to read its device time
 DEDUP_LAUNCHES = 20
@@ -484,10 +495,10 @@ def time_ms(fn, device, reps=10, warmup=2):
     return (time.perf_counter() - t0) * 1e3 / reps, out
 
 
-def synthetic_inputs(device, nibbles, CR, B=8192, P=8, Nb=N):
+def synthetic_inputs(device, nibbles, CR, B=8192, P=8, Nb=N, D=D):
     """Kernel inputs at one of the paths' shapes: ``CR`` code rows per block
-    (48 for group 1, 96 for group 2, 24 for int4 at k=48) over ``Nb``
-    blocks, ~10% empty anchors."""
+    (48 for group 1, 96 for group 2, 24 for int4 at k=48) of ``D`` bytes
+    over ``Nb`` blocks, ~10% empty anchors."""
     gen = torch.Generator(device=device).manual_seed(1 + nibbles)
     # query rows at the main path's magnitudes (uint8-range data, scale ~1)
     qs = torch.rand((B, D), generator=gen, device=device) * 255.0
@@ -500,10 +511,11 @@ def synthetic_inputs(device, nibbles, CR, B=8192, P=8, Nb=N):
     return qs, anchors, blocks
 
 
-def check_kernel(device, nibbles, CR, B=8192, P=8, Nb=N):
+def check_kernel(device, nibbles, CR, B=8192, P=8, Nb=N, D=D, label="synthetic"):
     """Kernel vs its plain version on :func:`synthetic_inputs`."""
-    qs, anchors, blocks = synthetic_inputs(device, nibbles, CR, B=B, P=P, Nb=Nb)
-    return measure_kernel(device, qs, anchors, blocks, nibbles, "synthetic")
+    qs, anchors, blocks = synthetic_inputs(device, nibbles, CR, B=B, P=P, Nb=Nb,
+                                           D=D)
+    return measure_kernel(device, qs, anchors, blocks, nibbles, label)
 
 
 def bound(anchors, blocks, nibbles):
@@ -2840,6 +2852,8 @@ def run(device):
     u8 = check_kernel(device, False, 48)
     int4 = check_kernel(device, True, 24)
     group2 = check_kernel(device, False, 96, Nb=N // 2)
+    tail = {label: check_kernel(device, nibbles, CR, B=B, D=TAIL_D, label=label)
+            for label, nibbles, CR, B in TAIL_SHAPES}
     torch.cuda.empty_cache()
     t0 = _phase("kernel vs plain", t0)
     dedup = check_dedup(device)
@@ -2970,6 +2984,7 @@ def run(device):
         "library_ms": None,
         "int4": numbers(int4),
         "group2": numbers(group2),
+        "tail": {label: numbers(r) for label, r in tail.items()},
         "real_anchors": {"group1": numbers(summary["real"]),
                          "group2": numbers(layouts["group2"]["real"]),
                          "group4": numbers(layouts["group4"]["real"]),

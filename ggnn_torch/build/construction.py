@@ -74,6 +74,8 @@ class _BuildContext:
         self.timer = PhaseTimer(dev)
         self._codes = None  # fitted on first use by a quantized walk
         self._quant_ok = None
+        # the descending merges by what their walks fetched
+        self.merge_fetch = {"quantized": 0, "f32": 0}
         L = cfg.L
         self.neighbors = [
             torch.full((cfg.Ns[l], cfg.KBuild), -1, dtype=torch.int32, device=dev)
@@ -174,6 +176,7 @@ class _BuildContext:
                 )
         else:
             self.quantized_fetch = False  # don't re-check every pass
+        self.merge_fetch["quantized" if adjs is not None else "f32"] += 1
         with self.timer.phase(f"merge[{layer_top}->{layer_btm}]",
                               self.cfg.Ns[layer_btm]):
             nbrs, nn1 = merge_layer(
@@ -245,8 +248,10 @@ def build_graph(
 ) -> tuple[Graph, dict]:
     """Build one graph shard on ``base``'s device. Returns (graph, build
     stats with per-phase seconds, the CUDA graphs its merge walks captured
-    (``graphs_captured``) and the ``quantizer`` (scale, zero) fitted on the
-    base, or None when no quantized walk needed one).
+    (``graphs_captured``), the descending merges by what their walks
+    fetched (``merge_fetch``: {"quantized": the inline codes, "f32": exact
+    rows}) and the ``quantizer`` (scale, zero) fitted on the base, or None
+    when no quantized walk needed one).
 
     ``sym_mode``: "bulk" (drop residual links instead of walking; default),
     "hybrid" (bulk proposals + residual walks), "walk" (walk every
@@ -276,6 +281,7 @@ def build_graph(
         "sym": ctx.sym_stats,
         "build_time_s": ctx.timer.total(),
         "graphs_captured": graphs.thread_captures() - captured,
+        "merge_fetch": dict(ctx.merge_fetch),
         "quantizer": None if ctx._codes is None else (ctx._scale, ctx._zero),
     }
     return ctx.to_graph(), stats

@@ -123,14 +123,20 @@ def kernel_resources(lib_path: Path | None = None):
 
 
 def variant(D: int, nibbles: bool = False) -> tuple[str, int, bool]:
-    """The kernel a launch of code rows ``D`` bytes wide takes: (layout
-    "u8" or "int4", lanes a code row, wide). Lanes cover the row's D/16
-    16-byte chunks, a power of two of at most 32; above 32 chunks (D > 512)
-    the "wide" kernel loops over a lane's chunks (``csrc/adjacency_dot.cu``:
-    ``adjacency_dot_<layout>_t<lanes>`` or ``adjacency_dot_<layout>_wide``)."""
-    chunks = D // 16
+    """The kernel a launch of code rows ``D`` bytes wide takes: (layout,
+    lanes a code row, wide). Where D % 16 == 0 the layout is "u8" or
+    "int4" and lanes cover the row's D/16 16-byte chunks, a power of two of
+    at most 32; above 32 chunks (D > 512) the "wide" kernel loops over a
+    lane's chunks (``csrc/adjacency_dot.cu``: ``adjacency_dot_<layout>_t<lanes>``
+    or ``adjacency_dot_<layout>_wide``). Other widths take the tail
+    kernels, layout "u8_tail" or "int4_tail": their chunks are the row's
+    D/4 4-byte words (wide above 32 words, D > 128). Only a name: the
+    kernel route refuses D % 4 != 0 (:func:`_check_kernel_inputs`)."""
+    tail = D % 16 != 0
+    chunks = D // 4 if tail else D // 16
     lanes = min(32, 1 << max(0, chunks - 1).bit_length())
-    return ("int4" if nibbles else "u8", lanes, chunks > 32)
+    layout = "int4" if nibbles else "u8"
+    return (layout + "_tail" if tail else layout, lanes, chunks > 32)
 
 
 def variant_launches() -> dict:
@@ -174,14 +180,23 @@ def _check(qs, anchors, blocks):
 
 
 def _check_kernel_inputs(qs, anchors, blocks):
-    """What the kernel needs beyond :func:`_check`."""
-    if qs.shape[1] % 16:
-        raise ValueError(f"adjacency_dot kernel needs D % 16 == 0, got D={qs.shape[1]}")
+    """What the kernel needs beyond :func:`_check`: D % 4 == 0, contiguous
+    inputs, ``qs`` 16-byte aligned, and ``blocks`` aligned to its loads --
+    16 bytes where D % 16 == 0, else 4 (the tail kernels' code rows start
+    every D bytes, so 4-byte aligned at best)."""
+    D = qs.shape[1]
+    if D % 4:
+        raise ValueError(f"adjacency_dot kernel needs D % 4 == 0 (4-byte aligned "
+                         f"code rows), got D={D}")
     if not (qs.is_contiguous() and anchors.is_contiguous()
             and blocks.is_contiguous()):
         raise ValueError("adjacency_dot kernel needs contiguous inputs")
-    if qs.data_ptr() % 16 or blocks.data_ptr() % 16:
-        raise ValueError("adjacency_dot kernel needs 16-byte aligned qs and blocks")
+    if qs.data_ptr() % 16:
+        raise ValueError("adjacency_dot kernel needs 16-byte aligned qs")
+    align = 4 if D % 16 else 16
+    if blocks.data_ptr() % align:
+        raise ValueError(f"adjacency_dot kernel needs {align}-byte aligned "
+                         f"blocks at D={D}")
 
 
 def adjacency_dot(qs: torch.Tensor, anchors: torch.Tensor,
@@ -191,7 +206,9 @@ def adjacency_dot(qs: torch.Tensor, anchors: torch.Tensor,
     Same contract as :func:`adjacency_dot_plain`, except that the lanes of a
     -1 anchor are left unwritten on the card. CPU tensors take the plain
     version; CUDA tensors launch the kernel, which needs contiguous inputs,
-    ``D % 16 == 0`` and 16-byte aligned ``qs`` and ``blocks``.
+    ``D % 4 == 0`` (4-byte aligned code rows; rows of D % 16 != 0 bytes
+    take the tail kernels, :func:`variant`), 16-byte aligned ``qs`` and
+    ``blocks`` aligned to 16 bytes where D % 16 == 0, else to 4.
     """
     _check(qs, anchors, blocks)
     dev = qs.device

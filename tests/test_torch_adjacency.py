@@ -15,6 +15,14 @@ The kernel turns codes into floats without the int -> float conversion
 unit (a byte moved into the mantissa of 2^23, then 2^23 subtracted); the
 numpy tests here pin that this arithmetic is exact, which is why the
 kernel's results need no looser tolerance than the f32 summation order.
+
+Code rows whose width D is a multiple of 4 but not of 16 (GloVe's 100) take
+the tail kernels, which read 4-byte words. On the card every kernel is also
+held bit for bit: against the plain version where the queries are small
+integers (every sum is then exact, in any order), and against
+:func:`_kernel_order`, the plain version summed in the kernel's own order
+(each lane's bytes in sequence, then a butterfly over the row's lanes),
+where they are not.
 """
 
 import numpy as np
@@ -104,11 +112,102 @@ def test_plain_matches_xla_wide_rows(D, nibbles):
     (16, False, ("u8", 1, False)), (48, False, ("u8", 4, False)),
     (128, False, ("u8", 8, False)), (512, True, ("int4", 32, False)),
     (528, False, ("u8", 32, True)), (960, False, ("u8", 32, True)),
-    (4096, True, ("int4", 32, True))])
+    (4096, True, ("int4", 32, True)),
+    (4, False, ("u8_tail", 1, False)), (20, False, ("u8_tail", 8, False)),
+    (100, False, ("u8_tail", 32, False)), (100, True, ("int4_tail", 32, False)),
+    (116, False, ("u8_tail", 32, False)), (132, False, ("u8_tail", 32, True)),
+    (516, True, ("int4_tail", 32, True)), (772, False, ("u8_tail", 32, True))])
 def test_variant_is_the_launchs_kernel(D, nibbles, want):
     """``variant`` names the kernel ``adjacency_dot_launch`` picks: lanes the
-    power of two covering D/16 chunks, at most 32; wide above 32 chunks."""
+    power of two covering D/16 chunks, at most 32; wide above 32 chunks.
+    Where D % 16 != 0 the tail kernels' chunks are D/4 4-byte words, and
+    the layout says so; D % 16 == 0 keeps its 3-tuple (layout, lanes,
+    wide) as the benchmark's readers unpack it."""
     assert adjacency.variant(D, nibbles) == want
+
+
+@pytest.mark.parametrize("D", [1, 10, 98, 130])
+def test_widths_off_4_bytes_have_no_kernel(D):
+    """D % 4 != 0: the kernel route refuses it, naming the constraint; the
+    plain route still answers."""
+    qs, anchors, blocks = (torch.from_numpy(x) for x in _inputs(D, 4, 2, 8, D, 10, False))
+    with pytest.raises(ValueError, match="D % 4 == 0"):
+        adjacency._check_kernel_inputs(qs, anchors, blocks)
+    assert adjacency_dot(qs, anchors, blocks).shape == (4, 2, 8)
+
+
+@pytest.mark.parametrize("D, ok", [(100, True), (20, True), (128, False), (96, False)])
+def test_tail_blocks_need_only_4_byte_alignment(D, ok):
+    """Tail code rows start every D bytes, so the tail kernels read 4-byte
+    words and accept blocks 4 bytes past an aligned start; the 16-byte
+    kernels refuse them."""
+    flat = torch.zeros(4 + 10 * 8 * D, dtype=torch.uint8)
+    blocks = flat[4:].view(10, 8, D)
+    qs = torch.zeros((4, D))
+    anchors = torch.zeros((4, 2), dtype=torch.int32)
+    if ok:
+        adjacency._check_kernel_inputs(qs, anchors, blocks)
+    else:
+        with pytest.raises(ValueError, match="16-byte aligned blocks"):
+            adjacency._check_kernel_inputs(qs, anchors, blocks)
+
+
+def _kernel_order(qs, anchors, blocks, nibbles):
+    """The plain version summed as the kernel sums, in f32: lane ``s`` of a
+    code row's ``T`` lanes runs one fma chain over the bytes of its chunks
+    ``s, s + T, ...`` (16 bytes a chunk, 4 in the tail kernels), in order;
+    the lanes then add in a butterfly (offsets T/2, T/4, ..., 1). int4's
+    high nibbles are summed in place, as 16x their value, and the sum scaled
+    by 1/16. Every product is exact (a bf16 query times a code <= 255), so
+    each addition rounds as the kernel's does."""
+    B, D = qs.shape
+    _, lanes, _ = adjacency.variant(D, nibbles)
+    cb = 4 if D % 16 else 16
+    nchunk = D // cb
+    per_lane = -(-nchunk // lanes)
+    q = qs.to(torch.bfloat16).to(torch.float32)
+    q = torch.nn.functional.pad(q, (0, (per_lane * lanes - nchunk) * cb))
+    q = q.view(B, per_lane, lanes, cb)
+    craw = blocks[anchors.clamp_min(0).long()]  # [B, P, CR, D] u8
+    parts = [craw & 15, craw & 0xF0] if nibbles else [craw]
+    out = []
+    for codes in parts:
+        c = torch.nn.functional.pad(codes.to(torch.float32),
+                                    (0, (per_lane * lanes - nchunk) * cb))
+        c = c.view(*c.shape[:3], per_lane, lanes, cb)
+        acc = torch.zeros(c.shape[:3] + (lanes,), dtype=torch.float32,
+                          device=qs.device)
+        for i in range(per_lane):
+            for j in range(cb):
+                acc = acc + q[:, None, None, i, :, j] * c[:, :, :, i, :, j]
+        while acc.shape[-1] > 1:
+            h = acc.shape[-1] // 2
+            acc = acc[..., :h] + acc[..., h:]
+        out.append(acc[..., 0])
+    if nibbles:
+        out[1] = out[1] * 0.0625
+    return torch.cat(out, dim=2)
+
+
+@pytest.mark.parametrize("nibbles", [False, True])
+@pytest.mark.parametrize("D", [4, 20, 100, 132, 516])
+def test_plain_matches_float64_einsum(D, nibbles):
+    """Code rows of every tail width the card tests take, -1 anchors among
+    them: the plain version (and the kernel's summation order) against the
+    float64 sum of the bf16-rounded queries times the codes."""
+    qs, anchors, blocks = _inputs(D + nibbles, 16, 8, 24, D, 300, nibbles)
+    anchors[0] = -1
+    q64 = torch.from_numpy(qs).to(torch.bfloat16).to(torch.float64).numpy()
+    craw = blocks[np.clip(anchors, 0, None)].astype(np.int64)
+    if nibbles:
+        craw = np.concatenate([craw & 15, craw >> 4], axis=2)
+    want = np.einsum("bd,bpkd->bpk", q64, craw.astype(np.float64))
+    out = _plain(qs, anchors, blocks, nibbles)
+    assert out.shape == want.shape == (16, 8, 48 if nibbles else 24)
+    _assert_live_close(out, want, anchors)
+    ordered = _kernel_order(*(torch.from_numpy(x) for x in (qs, anchors, blocks)),
+                            nibbles).numpy()
+    _assert_live_close(ordered, want, anchors)
 
 
 def test_cpu_dispatch_takes_plain_route():
@@ -358,3 +457,62 @@ def test_cuda_kernel_at_wide_rows(cuda_device, D, B, P, nibbles):
     ref = adjacency_dot_plain(qs, anchors, blocks, nibbles=nibbles)
     _assert_live_close(out.cpu().numpy(), ref.cpu().numpy(),
                        anchors.cpu().numpy())
+
+
+def _integer_queries(B, D, device, seed):
+    """Query rows of small integers: every product and partial sum of a
+    dot with codes <= 255 is an integer below 2^24, so exact in f32 in any
+    order."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-8, 9, (B, D), generator=gen, device=device).to(torch.float32)
+
+
+TAIL_WIDTHS = [4, 20, 100, 116, 516, 772]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nibbles", [False, True])
+@pytest.mark.parametrize("CR", [24, 48])
+@pytest.mark.parametrize("D", TAIL_WIDTHS)
+def test_cuda_tail_kernel_bit_equal_to_plain(cuda_device, D, CR, nibbles):
+    """The tail kernels (D % 16 != 0) at every lane count and the wide loop:
+    with exact sums the live lanes equal the plain version bit for bit; a
+    row of empty anchors and anchors >= N fault nothing; the launch counts
+    under the tail variant."""
+    N, B, P = 64, 65, 8
+    blocks = _inputs(D * 100 + CR, B, P, CR, D, N, nibbles)[2]
+    anchors = np.random.default_rng(D + CR).integers(-1, N + 4, size=(B, P)).astype(np.int32)
+    anchors[0] = -1
+    anchors[1] = N + np.arange(P)
+    live = (anchors >= 0) & (anchors < N)
+    qs = _integer_queries(B, D, cuda_device, D + CR)
+    a = torch.from_numpy(anchors).to(cuda_device)
+    blk = torch.from_numpy(blocks).to(cuda_device)
+    key = adjacency.variant(D, nibbles)
+    assert key[0].endswith("_tail")
+    before = adjacency.variant_launches().get(key, 0)
+    out = adjacency_dot(qs, a, blk, nibbles=nibbles)
+    torch.cuda.synchronize()
+    assert adjacency.variant_launches()[key] == before + 1
+    ref = adjacency_dot_plain(qs, torch.from_numpy(np.where(live, anchors, -1))
+                              .to(cuda_device), blk, nibbles=nibbles)
+    m = torch.from_numpy(live).to(cuda_device)
+    assert torch.equal(out[m], ref[m])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nibbles", [False, True])
+@pytest.mark.parametrize("D", [96, 128, 960, 100, 516])
+def test_cuda_kernel_bit_equal_in_its_summation_order(cuda_device, D, nibbles):
+    """Normal queries, where the order of the additions shows: the 16-byte
+    instances (deep1m's 96, sift1m's 128, gist1m's 960) and the tail ones
+    (100, 516) equal :func:`_kernel_order` bit for bit on live lanes."""
+    N, B, P = 256, 96, 8
+    CR = 12 if nibbles else 24
+    qs, anchors, blocks = _inputs(D + 7 * nibbles, B, P, CR, D, N, nibbles)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (qs, anchors, blocks)]
+    out = adjacency_dot(*args, nibbles=nibbles)
+    torch.cuda.synchronize()
+    want = _kernel_order(*args, nibbles)
+    m = args[1] >= 0
+    assert torch.equal(out[m], want[m])

@@ -61,9 +61,12 @@ def make_dataset(n, nq, d, d_latent=12, seed=0):
     return sample(n), sample(nq)
 
 
-def reference(tmp_path_factory, worker_id, n=4096, d=64, k_build=16):
+def reference(tmp_path_factory, worker_id, n=4096, d=64, k_build=16, *,
+              measure="euclidean", base=None):
     """The JAX package's default build (tau 0.5, 2 refinements) on
-    ``make_dataset(n, ., d)``'s base, built once per test run.
+    ``make_dataset(n, ., d)``'s base, built once per test run. ``base``
+    (an [n, d] f32 array) replaces that base, ``measure`` ("euclidean" or
+    "cosine") the build's measure; the stored graph is named by both.
 
     The first caller builds the graph and stores it (the graph ``.npz`` and
     its JSON header) in a directory of this run's temporary tree: under
@@ -76,16 +79,29 @@ def reference(tmp_path_factory, worker_id, n=4096, d=64, k_build=16):
     base and its squared norms on the device, as after ``build``. The
     caller draws its own queries and ground truth.
     """
+    import hashlib  # noqa: PLC0415
+
     from filelock import FileLock  # noqa: PLC0415
 
     import ggnn_tpu  # noqa: PLC0415
+    from ggnn_tpu.config import DistanceMeasure  # noqa: PLC0415
 
     root = tmp_path_factory.getbasetemp()
     if worker_id != "master":
         root = root.parent
-    path = root / f"jax_reference_n{n}_d{d}_k{k_build}"
+    name = f"jax_reference_n{n}_d{d}_k{k_build}"
+    if base is None:
+        base = make_dataset(n, 0, d)[0]
+    else:
+        base = np.ascontiguousarray(base, dtype=np.float32)
+        n, d = base.shape
+        digest = hashlib.sha1(base.tobytes()).hexdigest()[:12]
+        name = f"jax_reference_n{n}_d{d}_k{k_build}_{digest}"
+    if measure != "euclidean":
+        name += f"_{measure}"
+    path = root / name
     g = ggnn_tpu.GGNN()
-    g.set_base(make_dataset(n, 0, d)[0])
+    g.set_base(base)
     g.set_working_directory(path)
     with FileLock(f"{path}.lock"):
         if (path / "part_0.npz").is_file():
@@ -94,6 +110,7 @@ def reference(tmp_path_factory, worker_id, n=4096, d=64, k_build=16):
                 shard.ensure_base()
                 shard.ensure_graph()
         else:
-            g.build(k_build=k_build, tau_build=0.5, refinement_iterations=2)
+            g.build(k_build=k_build, tau_build=0.5, refinement_iterations=2,
+                    measure=DistanceMeasure.parse(measure))
             g.store()
     return g
